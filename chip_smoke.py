@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's RB-PHD SLAM main path once on one NVIDIA GPU.
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+
+1. print the card's name and power limit;
+2. build both CUDA kernels from ``rfs_slam_tpu_torch/csrc`` with nvcc;
+3. ``map_update2d``: kernel against its plain twin at the bench shape
+   (P=200, M=128, Zc=40) on a mid-run state of the ``native/bl_dump``
+   replay, with that replay's measurements;
+4. ``merge2d``: kernel against its plain twin on random mixtures with
+   20-120 alive slots and on the same mid-run state;
+5. the full bench-configuration replay of ``native/bl_dump`` (3,000 steps,
+   P=200) through both kernels: launch counts, finite outputs, and the
+   median pose error within a divergence bound of 0.3 m (bench gate 0.12 m);
+6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
+   generator seeds 1-4) against the bench gate of 0.15 m.
+
+Each kernel's ``ms`` beside its twin's ``plain_ms`` is the median device
+time of 25 calls at the bench shape (see :func:`cuda_ms`).  Prints the
+kernel table, then the card, then the contract line
+``{"ok": true, "device": {...}}`` last.  Usage: ``python3 chip_smoke.py
+[--gates]`` from the repository root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BL_DUMP = os.path.join(HERE, "native", "bl_dump")
+MIDRUN_STEPS = 60
+DIVERGENCE_BOUND_M = 0.3
+REPLAY_GATE_M = 0.12       # bench.py IDENTICAL_DATA_ANCHOR_M
+SEED_MEDIAN_GATE_M = 0.15  # bench.py ACCURACY_ANCHOR_M
+QUEUE_SPIN_CYCLES = 40_000_000  # ~20 ms of a ~2 GHz SM clock
+
+
+def cuda_ms(torch, fn, n: int = 25, warmup: int = 3,
+            queued: bool = True) -> float:
+    """Median over ``n`` calls of ``fn`` of the time between CUDA events
+    recorded around each call.
+
+    ``queued``: the stream is first held busy (~20 ms spin), so the host
+    has issued the whole call before the card reaches the start event and
+    the pair spans the call's device work only; a call that waits on the
+    device (the merge twin syncs once per pass) still includes its host
+    stalls.  Without it the pair also spans the host's issue time, as a
+    filter step sees it.
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_vs_twin_ms(torch, name, kernel, twin):
+    """Queued (device) times of the kernel and its twin, and their call
+    times, printed; returns the queued pair."""
+    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, twin)
+    call_ms = cuda_ms(torch, kernel, queued=False)
+    plain_call_ms = cuda_ms(torch, twin, queued=False)
+    print(f"{name}: device ms {ms:.4f} (twin {plain_ms:.4f}); call ms "
+          f"{call_ms:.4f} (twin {plain_call_ms:.4f})", flush=True)
+    return ms, plain_ms
+
+
+def close(name, got, want, rtol, atol, mask=None):
+    """Assert ``got`` ~ ``want`` (numpy allclose semantics); returns the max
+    absolute error."""
+    got = got.detach().cpu().numpy()
+    want = want.detach().cpu().numpy()
+    if mask is not None:
+        got, want = got[..., mask], want[..., mask]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+    return float(np.max(np.abs(got - want), initial=0.0))
+
+
+def midrun(torch, app, filt, gen, dt):
+    """The bench filter after MIDRUN_STEPS steps of the bl_dump replay,
+    predicted to the next step, with that step's measurements."""
+    _, inputs = app.load_bl_dump(BL_DUMP, steps=MIDRUN_STEPS + 2)
+    head = tuple(a[:MIDRUN_STEPS] for a in inputs)
+    state, _ = app.run(filt, head, gen, dt)
+    dev = gen.device
+    odo, z, z_mask = (torch.as_tensor(a[MIDRUN_STEPS], device=dev)
+                      for a in inputs[:3])
+    return filt.predict(state, odo.float(), dt, gen=gen), z, z_mask
+
+
+def check_map_update(torch, mu, filt, state, z, z_mask):
+    gm, cfg = state.gm, filt.cfg
+    params = mu.pack_params(filt.meas, filt.gates,
+                            cfg.new_gaussian_md_threshold,
+                            cfg.birth_gaussian_weight)
+    args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
+            gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
+            params, cfg.new_per_z)
+    k = mu.fused_map_update2d(*args)
+    p = mu.map_update2d_plain(*args)
+    torch.cuda.synchronize()
+    if not bool(gm.alive.any()):
+        raise AssertionError("map_update2d: the mid-run map is empty")
+    errs = [close("pd", k.pd, p.pd, 1e-6, 1e-7),
+            close("col_sum", k.col_sum, p.col_sum, 5e-5, 1e-7),
+            close("w", k.w, p.w, 5e-5, 1e-7),
+            close("w_prev", k.w_prev, p.w_prev, 0, 0),
+            close("K", k.K, p.K, 1e-4, 1e-6),
+            close("cov_upd", k.cov_upd, p.cov_upd, 1e-4, 1e-6),
+            close("z_exp", k.z_exp, p.z_exp, 1e-5, 1e-6),
+            close("cand_w", k.cand_w, p.cand_w, 1e-5, 1e-8)]
+    np.testing.assert_array_equal(k.unused.cpu().numpy(),
+                                  p.unused.cpu().numpy(), err_msg="unused")
+    nz = (p.cand_w > 0).cpu().numpy()
+    np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
+                                  p.cand_m.cpu().numpy()[nz],
+                                  err_msg="cand_m")
+    print(f"map_update2d: kernel == twin on the mid-run state "
+          f"({int(gm.count().sum())} alive slots, {int(z_mask.sum())} "
+          f"measurements, {int(nz.sum())} candidates)", flush=True)
+    return (max(errs), *kernel_vs_twin_ms(
+        torch, "map_update2d", lambda: mu.fused_map_update2d(*args),
+        lambda: mu.map_update2d_plain(*args)))
+
+
+def random_mixtures(torch, GMState, rng, P, N, dev):
+    """Random D=2 mixtures, 20-120 alive slots per particle, alive first."""
+    mean = rng.uniform(-3, 3, size=(P, N, 2)).astype(np.float32)
+    A = rng.normal(size=(P, N, 2, 2)).astype(np.float32) * 0.2
+    cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(2, dtype=np.float32)
+    w = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
+    alive = np.arange(N)[None, :] < rng.integers(20, 121, size=(P, 1))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return GMState(
+        mean=t(np.moveaxis(mean, -1, 0).copy()),
+        cov=t(np.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]])),
+        w=t(w), w_prev=t(w * 0.5), alive=t(alive))
+
+
+def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
+    cfg = filt.cfg
+    gm_full = filt._map_update(state, z, z_mask)[0]
+    cases = [("mid-run", gm_ops.compact(gm_full, gm_full.capacity),
+              cfg.merge_threshold, cfg.merge_inflation)]
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        cases.append(("random", random_mixtures(torch, GMState, rng, 200, 128,
+                                                dev), 1.5, 1.5))
+    errs = []
+    for name, gm, thr, infl in cases:
+        k = mg.merge2d(gm, thr, infl)
+        p = mg.merge2d_plain(gm, thr, infl)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k.alive.cpu().numpy(),
+                                      p.alive.cpu().numpy(),
+                                      err_msg=f"merge2d alive ({name})")
+        a = p.alive.cpu().numpy()
+        errs += [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
+                 close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
+                 close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-5, a),
+                 close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
+        print(f"merge2d: kernel == twin on {name} mixtures "
+              f"({int(gm.count().sum())} -> {int(p.count().sum())} alive)",
+              flush=True)
+    gm, thr, infl = cases[0][1:]
+    return (max(errs), *kernel_vs_twin_ms(
+        torch, "merge2d", lambda: mg.merge2d(gm, thr, infl),
+        lambda: mg.merge2d_plain(gm, thr, infl)))
+
+
+def timed_run(torch, app, filt, inputs, seed, dt, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, best = app.run(filt, inputs, gen, dt)
+    torch.cuda.synchronize()
+    return state, best, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--gates", action="store_true",
+                    help="also run the 4-seed simulation median")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+    from rfs_slam_tpu_torch.core.state import GMState
+    from rfs_slam_tpu_torch.io import sim2d
+    from rfs_slam_tpu_torch.ops import gm as gm_ops
+    from rfs_slam_tpu_torch.ops.kernels import build
+    from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
+    from rfs_slam_tpu_torch.ops.kernels import merge2d as mg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+
+    # ---- 2. build
+    for name in ("map_update2d", "merge2d"):
+        build.load(name)
+        secs, log = build.BUILD_LOG.get(name, (0.0, "(cached build)"))
+        print(f"build {name}: {secs:.1f} s\n{log}", flush=True)
+
+    sim_cfg = sim2d.Sim2DConfig()
+    dt = sim_cfg.dt
+    filt = app.build_filter(sim_cfg, dev)
+
+    # ---- 3-4. kernels against their twins
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, z, z_mask = midrun(torch, app, filt, gen, dt)
+    mu_err, mu_ms, mu_plain = check_map_update(torch, mu, filt, state, z,
+                                               z_mask)
+    mg_err, mg_ms, mg_plain = check_merge(torch, mg, gm_ops, GMState, filt,
+                                          state, z, z_mask, dev)
+
+    # ---- 5. the full replay through both kernels
+    gt, inputs = app.load_bl_dump(BL_DUMP)
+    n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
+    mu.launches = 0
+    mg.launches = 0
+    final, best, wall = timed_run(torch, app, filt, inputs, 0, dt, dev)
+    launches = {"map_update2d": mu.launches, "merge2d": mg.launches}
+    for name, n in launches.items():
+        if n != n_updates:
+            raise AssertionError(f"{name}: {n} launches in the replay, "
+                                 f"{n_updates} updates had measurements")
+    alive = final.gm.alive
+    if not (np.isfinite(best).all()
+            and bool(torch.isfinite(final.particles.log_w).all())
+            and bool(torch.isfinite(final.gm.w[alive]).all())
+            and bool(torch.isfinite(final.gm.mean[:, alive]).all())):
+        raise AssertionError("replay produced non-finite outputs")
+    err = app.median_pose_error(best, gt[1:])
+    steps = len(best)
+    print(json.dumps({
+        "replay": "native/bl_dump", "steps": steps,
+        "particles": filt.cfg.n_particles, "wall_s": wall,
+        "steps_per_s": steps / wall, "median_pose_err_m": err,
+        "divergence_bound_m": DIVERGENCE_BOUND_M,
+        "bench_gate_m": REPLAY_GATE_M, "bench_gate_ok": err <= REPLAY_GATE_M,
+        "final_alive_mean": float(alive.sum(dim=1).float().mean())}),
+        flush=True)
+    if not err <= DIVERGENCE_BOUND_M:
+        raise AssertionError(f"replay median pose error {err} m > "
+                             f"{DIVERGENCE_BOUND_M} m")
+
+    # ---- 6. the 4-seed simulation median
+    if args.gates:
+        data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1,
+                              z_capacity=app.Z_CAPACITY)
+        sim_in = app.sim_inputs(data)
+        errs = []
+        for seed in (1, 2, 3, 4):
+            _, b, w_s = timed_run(torch, app, filt, sim_in, seed, dt, dev)
+            errs.append(app.median_pose_error(b, data.gt_pose[1:]))
+            print(f"gates: seed {seed}: {errs[-1]:.4f} m, "
+                  f"{len(b) / w_s:.1f} steps/s", flush=True)
+        med = float(np.median(errs))
+        print(json.dumps({"gates": "sim2d traj_seed=1 noise_seed=1",
+                          "seed_errors_m": errs, "median_pose_err_m": med,
+                          "bench_gate_m": SEED_MEDIAN_GATE_M,
+                          "bench_gate_ok": med <= SEED_MEDIAN_GATE_M}),
+              flush=True)
+
+    kernels = [
+        {"name": "map_update2d", "route": "cuda",
+         "source": "rfs_slam_tpu_torch/csrc/map_update2d.cu",
+         "replaces": "rfs_slam_tpu/ops/pallas/map_update2d.py:309",
+         "launches": launches["map_update2d"], "max_abs_err": mu_err,
+         "ms": mu_ms, "plain_ms": mu_plain},
+        {"name": "merge2d", "route": "cuda",
+         "source": "rfs_slam_tpu_torch/csrc/merge2d.cu",
+         "replaces": "rfs_slam_tpu/ops/pallas/merge2d.py:194",
+         "launches": launches["merge2d"], "max_abs_err": mg_err,
+         "ms": mg_ms, "plain_ms": mg_plain},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Carry state, models and configuration between the JAX package and this
+port, as numpy arrays.
+
+:func:`from_numpy` builds any of the port's dataclasses from an object with
+the same attribute names: a JAX ``RBPHDState``, ``GMState``, model or
+``RBPHDConfig`` (its leaves converted with ``np.asarray``), or a nested
+dict made by :func:`to_numpy`.  Attributes the port does not have (the JAX
+particle key, TPU-only config knobs) are ignored.  This module imports no
+JAX: it reads attributes only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import numpy as np
+import torch
+
+from rfs_slam_tpu_torch.filters.rbphd import RBPHDConfig, RBPHDFilter
+from rfs_slam_tpu_torch.models.measurement import RangeBearing
+from rfs_slam_tpu_torch.models.motion import Odometry2D, StaticLandmark
+from rfs_slam_tpu_torch.ops.ekf import InnovationGates
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def from_numpy(cls, obj, device: torch.device):
+    """Port dataclass ``cls`` from ``obj`` (see module doc)."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        v = _get(obj, f.name)
+        t = hints[f.name]
+        if dataclasses.is_dataclass(t):
+            kwargs[f.name] = from_numpy(t, v, device)
+        elif t is torch.Tensor:
+            a = np.array(v)
+            if a.dtype == np.float64:   # JAX computes these in float32
+                a = a.astype(np.float32)
+            kwargs[f.name] = torch.as_tensor(a, device=device)
+        elif t is tuple:
+            kwargs[f.name] = tuple(np.asarray(v).tolist())
+        else:
+            kwargs[f.name] = t(np.asarray(v).item())
+    return cls(**kwargs)
+
+
+def to_numpy(obj):
+    """Port dataclass -> nested dict of numpy arrays (tensors moved to the
+    host); non-tensor fields are kept as they are."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = to_numpy(v)
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu().numpy()
+        else:
+            out[f.name] = v
+    return out
+
+
+def filter_from_numpy(filt, device: torch.device) -> RBPHDFilter:
+    """An :class:`RBPHDFilter` wired like ``filt`` (the JAX package's
+    filter with Odometry2D, StaticLandmark, RangeBearing and range-bearing
+    gates)."""
+    return RBPHDFilter(
+        from_numpy(Odometry2D, filt.motion, device),
+        from_numpy(StaticLandmark, filt.lmk, device),
+        from_numpy(RangeBearing, filt.meas, device),
+        from_numpy(InnovationGates, filt.gates, device),
+        from_numpy(RBPHDConfig, filt.cfg, device),
+    )

@@ -1,0 +1,344 @@
+"""RB-PHD SLAM filter over the whole particle set (port of
+the JAX package's ``filters/rbphd.py``).
+
+* ``predict`` = addBirthGaussians + particle propagation + landmark
+  covariance growth (RBPHDFilter.hpp:416-442);
+* ``update``  = the fused map update (kernel ``map_update2d`` on CUDA),
+  importance weighting with the exact RFS likelihood, GM merge (kernel
+  ``merge2d`` on CUDA) and prune, and ESS-gated systematic resampling
+  (RBPHDFilter.hpp:444-997).
+
+Map state is plane-major: means ``[D, P, M]``, packed covariances
+``[T, P, M]``.  Randomness comes from the caller: ``predict`` takes
+standard-normal draws ``[P, 3]`` and ``update`` the resampling offset
+``u0``, or draws them from a ``torch.Generator`` on the state's device.
+Nothing in a step waits on the device except the host-known empty-
+measurement branch, which the caller can answer with ``has_z``.
+
+Not ported yet (ROADMAP.md, Queue 1 #7): the birth-candidate state machine
+(``birth_count_threshold > 1``), ``correct_single``, and input noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from rfs_slam_tpu_torch.core import gaussian, planar
+from rfs_slam_tpu_torch.core.state import BirthCandidates, GMState, ParticleState
+from rfs_slam_tpu_torch.models.measurement import RangeBearing
+from rfs_slam_tpu_torch.ops import gm as gm_ops
+from rfs_slam_tpu_torch.ops import resample as resample_ops
+from rfs_slam_tpu_torch.ops.ekf import InnovationGates
+from rfs_slam_tpu_torch.ops.kernels.map_update2d import (fused_map_update2d,
+                                                         pack_params)
+from rfs_slam_tpu_torch.ops.rfs_likelihood import rfs_log_likelihood
+
+LOG_TINY = -80.0  # log-domain stand-in for denorm_min (RBPHDFilter.hpp:743)
+
+
+@dataclasses.dataclass(frozen=True)
+class RBPHDConfig:
+    """Static configuration (RBPHDFilter::Config, RBPHDFilter.hpp:90-146,
+    plus the capacities that replace dynamic allocation)."""
+
+    n_particles: int = 200
+    map_capacity: int = 256
+    z_capacity: int = 16
+    new_capacity: int = 64
+    new_per_z: int = 8
+    birth_capacity: int = 16
+    eval_capacity: int = 15
+    z_dp_max: int = 10
+
+    birth_gaussian_weight: float = 0.25
+    # only 1 is ported: every unused measurement is born at once
+    birth_count_threshold: int = 1
+    new_gaussian_md_threshold: float = 0.2
+    eval_pt_min_weight: float = 0.75
+    weighting_md_threshold: float = 3.0
+    merge_threshold: float = 0.5
+    merge_inflation: float = 1.5
+    prune_threshold: float = 0.2
+    min_updates_before_resample: int = 1
+    min_measurements_before_resample: int = 1
+    ess_threshold: float = 200.0
+    use_cluster_process: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RBPHDState:
+    particles: ParticleState
+    gm: GMState
+    birth: BirthCandidates
+    last_z: torch.Tensor       # [Zc, DZ] measurements of the previous update
+    last_unused: torch.Tensor  # [P, Zc] unused-measurement mask per particle
+    n_in_fov: torch.Tensor     # [P] landmarks in FOV at the last update
+    n_updates: torch.Tensor    # () updates since the last resample
+    n_meas: torch.Tensor       # () measurements since the last resample
+
+
+class RBPHDFilter:
+    """Wires models and config into the step functions (the reference's
+    ``RBPHDFilter<...>``, rbphdslam2dSim.cpp:444-492)."""
+
+    def __init__(self, motion, lmk_model, meas_model,
+                 gates: InnovationGates, cfg: RBPHDConfig):
+        if cfg.birth_count_threshold != 1:
+            raise NotImplementedError(
+                "birth_count_threshold > 1 (the birth-candidate state "
+                "machine) is not ported yet: ROADMAP.md Queue 1 #7")
+        self.motion = motion
+        self.lmk = lmk_model
+        self.meas = meas_model
+        self.gates = gates
+        self.cfg = cfg
+        # the map-update kernel's scalars, packed once (reading R back from
+        # the device every step would stall the host on the card)
+        self._map_params = (
+            pack_params(meas_model, gates, cfg.new_gaussian_md_threshold,
+                        cfg.birth_gaussian_weight)
+            if isinstance(meas_model, RangeBearing) else None)
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, pose0: torch.Tensor) -> RBPHDState:
+        """Initial state on ``pose0``'s device (pose0: [3]); 2-D landmarks
+        and measurements."""
+        c = self.cfg
+        dev, dt = pose0.device, pose0.dtype
+        zi = torch.zeros((), dtype=torch.int32, device=dev)
+        return RBPHDState(
+            particles=ParticleState.init(c.n_particles, pose0),
+            gm=GMState.empty(c.n_particles, c.map_capacity, 2, dev, dt),
+            birth=BirthCandidates.empty(c.n_particles, c.birth_capacity, 2,
+                                        dev, dt),
+            last_z=torch.zeros((c.z_capacity, 2), dtype=dt, device=dev),
+            last_unused=torch.zeros((c.n_particles, c.z_capacity),
+                                    dtype=torch.bool, device=dev),
+            n_in_fov=torch.zeros((c.n_particles,), dtype=torch.int32,
+                                 device=dev),
+            n_updates=zi, n_meas=zi.clone(),
+        )
+
+    # --------------------------------------------------------------- predict
+    def predict(self, state: RBPHDState, u: torch.Tensor, dt,
+                noise: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> RBPHDState:
+        """Reference: RBPHDFilter::predict (RBPHDFilter.hpp:416-442).
+
+        ``noise``: [P, 3] standard-normal motion draws; drawn from ``gen``
+        when None.
+        """
+        gm = self._add_birth_gaussians(state)
+        pose = self.motion.sample(state.particles.pose, u, dt, noise=noise,
+                                  gen=gen)
+        # landmark static step: cov += Q_lm (RBPHDFilter.hpp:433-439)
+        _, cov = self.lmk.static_step_p(gm.mean, gm.cov, dt)
+        gm = dataclasses.replace(gm, cov=torch.where(gm.alive, cov, gm.cov))
+        return dataclasses.replace(
+            state, gm=gm,
+            particles=dataclasses.replace(state.particles, pose=pose))
+
+    def _add_birth_gaussians(self, state: RBPHDState) -> GMState:
+        """RBPHDFilter::addBirthGaussians (RBPHDFilter.hpp:1000-1084) with
+        ``birth_count_threshold == 1``: every unused measurement of the last
+        update becomes a birth Gaussian at once."""
+        pose = state.particles.pose
+        z = state.last_z
+        z_planes = [z[:, d][None, :] for d in range(z.shape[-1])]
+        inv_mean, inv_cov = self.meas.inverse_p(pose[:, None, :], z_planes)
+        unused = state.last_unused
+        w_new = torch.where(unused, self.cfg.birth_gaussian_weight,
+                            0.0).to(pose.dtype)
+        return gm_ops.replace_weakest(state.gm, inv_mean, inv_cov, w_new,
+                                      unused)
+
+    # ---------------------------------------------------------------- update
+    def update(self, state: RBPHDState, z: torch.Tensor,
+               z_mask: torch.Tensor, u0: torch.Tensor | None = None,
+               gen: torch.Generator | None = None,
+               has_z: bool | None = None) -> RBPHDState:
+        """Reference: RBPHDFilter::update (RBPHDFilter.hpp:444-541).
+
+        ``z`` [Zc, DZ] padded measurements, ``z_mask`` [Zc] validity.
+        ``u0``: the resampling offset in [0, 1), drawn from ``gen`` when
+        None.  ``has_z``: whether ``z_mask`` has a measurement, when the
+        caller knows it on the host (saves a device sync).
+        """
+        if has_z is None:
+            has_z = bool(z_mask.any())
+        if not has_z:
+            # empty measurement set: only the update counter advances
+            # (RBPHDFilter.hpp:448-452)
+            return dataclasses.replace(state, n_updates=state.n_updates + 1)
+        return self._update_body(state, z, z_mask, u0, gen)
+
+    def _update_body(self, state, z, z_mask, u0, gen) -> RBPHDState:
+        cfg = self.cfg
+        pose = state.particles.pose
+        nZ = z_mask.sum(dtype=torch.int32)
+
+        gm_full, log_w, unused, n_in_fov, clutter_z = self._map_update(
+            state, z, z_mask)
+        if not cfg.use_cluster_process:
+            log_w = self._importance_weights(log_w, pose, gm_full, z, z_mask,
+                                             clutter_z, nZ)
+        gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
+                               cfg.merge_inflation)
+        gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
+        if u0 is None:
+            u0 = torch.rand((), generator=gen, dtype=pose.dtype,
+                            device=pose.device)
+        return self._resample_phase(state, gm_full, log_w, unused, n_in_fov,
+                                    z, nZ, u0)
+
+    def _map_update(self, state: RBPHDState, z, z_mask):
+        """Map-update phase (RBPHDFilter.hpp:543-725): the fused head
+        (kernel on CUDA, twin on CPU), then the exact top-k over the
+        ``Zc * new_per_z`` survivors, ``m + K nu`` at the selected cells
+        only (KalmanFilter.hpp:261-342), and ``replace_weakest``.
+
+        Returns ``(gm_full, log_w, unused, n_in_fov, clutter_z)``.
+        """
+        cfg = self.cfg
+        gm = state.gm
+        pose = state.particles.pose
+        D = gm.dim
+        P, M = gm.w.shape
+        Zc, dz = z.shape
+        if not (isinstance(self.meas, RangeBearing) and D == 2 and dz == 2
+                and tuple(self.gates.wrap_dims) == (1,)):
+            raise NotImplementedError(
+                "the map update is ported for the 2-D range-bearing model "
+                "only: ROADMAP.md Queue 1 #12-#13")
+        T_pz = min(cfg.new_per_z, M)
+        clutter_z = torch.full((Zc,), self.meas.clutter_intensity(),
+                               dtype=pose.dtype, device=pose.device)
+        log_w = state.particles.log_w
+
+        fo = fused_map_update2d(pose, gm.mean[0], gm.mean[1], gm.cov[0],
+                                gm.cov[1], gm.cov[2], gm.w, gm.w_prev,
+                                gm.alive, z, z_mask, self._map_params,
+                                new_per_z=T_pz)
+        n_in_fov = (fo.pd != 0.0).sum(dim=1, dtype=torch.int32)
+        if cfg.use_cluster_process:
+            # single-cluster-process weighting (RBPHDFilter.hpp:652-666)
+            w_km_sum = torch.where(gm.alive, gm.w, 0.0).sum(dim=1)
+            log_prod = torch.where(z_mask[None, :], torch.log(fo.col_sum),
+                                   0.0).sum(dim=1)
+            log_w = log_w + w_km_sum + log_prod
+        gm_old = dataclasses.replace(gm, w=fo.w, w_prev=fo.w_prev)
+
+        # new Gaussians (RBPHDFilter.hpp:675-683): exact top-k of the
+        # survivors; cand_w is laid out (t-major, z-minor)
+        k = min(cfg.new_capacity, Zc * T_pz)
+        top_w, top_c = planar.topk_stable(fo.cand_w, k)
+        z_idx = top_c % Zc
+        m_idx = torch.gather(fo.cand_m, 1, top_c)
+        planes = torch.cat([gm.mean, fo.K, fo.z_exp, fo.cov_upd], dim=0)
+        sel = torch.gather(planes, 2,
+                           m_idx[None].expand(planes.shape[0], -1, -1))
+        mean_sel, K_sel = sel[:D], sel[D:D + D * dz]
+        zexp_sel = sel[D + D * dz:D + D * dz + dz]
+        new_cov = sel[D + D * dz + dz:]
+        z_sel = [z[:, e][z_idx] for e in range(dz)]
+        innov_sel, _ = self.gates.innovation_p(
+            [zexp_sel[e] for e in range(dz)], z_sel)
+        new_mean = torch.stack([
+            mean_sel[d] + sum(K_sel[d * dz + e] * innov_sel[e]
+                              for e in range(dz))
+            for d in range(D)])
+        gm_full = gm_ops.replace_weakest(gm_old, new_mean, new_cov, top_w,
+                                         top_w > 0.0, sorted_desc=True)
+        return gm_full, log_w, fo.unused, n_in_fov, clutter_z
+
+    def _resample_phase(self, state: RBPHDState, gm_full, log_w, unused,
+                        n_in_fov, z, nZ, u0) -> RBPHDState:
+        """Resampling phase (RBPHDFilter.hpp:526-539) and state assembly."""
+        cfg = self.cfg
+        allow = ((state.n_updates + 1 >= cfg.min_updates_before_resample)
+                 & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
+        anc, new_log_w, did = resample_ops.maybe_resample(
+            u0, log_w, cfg.ess_threshold, allow)
+        particles = ParticleState(
+            pose=state.particles.pose.index_select(0, anc),
+            log_w=new_log_w, parent=anc)
+        zero = torch.zeros_like(state.n_updates)
+        return RBPHDState(
+            particles=particles,
+            gm=gm_full.gather_p(anc),
+            birth=state.birth.gather_p(anc),
+            last_z=z,
+            last_unused=unused.index_select(0, anc),
+            n_in_fov=n_in_fov.index_select(0, anc),
+            n_updates=torch.where(did, zero, state.n_updates + 1),
+            n_meas=torch.where(did, zero, state.n_meas + nZ),
+        )
+
+    def _importance_weights(self, log_w, pose, gm: GMState, z, z_mask,
+                            clutter_z, nZ):
+        """Reference: RBPHDFilter::importanceWeighting (hpp:728-819)."""
+        cfg = self.cfg
+        meas = self.meas
+        D = gm.dim
+        E = cfg.eval_capacity
+        dz = z.shape[-1]
+        if E == 0:
+            # no eval points: weight = denorm_min for every particle
+            # (hpp:741-744), uniform after normalization
+            return torch.full_like(log_w, LOG_TINY)
+        zero = torch.zeros((), dtype=log_w.dtype, device=log_w.device)
+
+        # eval points: top-E by weight among w >= minWeight, Pd > 0
+        pd_eval, _ = meas.pd_p(pose[:, None, :], gm.mean)
+        elig = gm.alive & (gm.w >= cfg.eval_pt_min_weight) & (pd_eval > 0.0)
+        score = torch.where(elig, gm.w, torch.full_like(gm.w, float("-inf")))
+        _, eval_idx = planar.topk_stable(score, E)               # [P, E]
+        eval_valid = torch.gather(elig, 1, eval_idx)
+        eval_mean = torch.gather(gm.mean, 2,
+                                 eval_idx[None].expand(D, -1, -1))
+        eval_pd = torch.gather(pd_eval, 1, eval_idx)
+        n_eval = eval_valid.sum(dim=1)
+
+        # GM intensity at the eval points before/after the update (hpp:765-800)
+        diff = [gm.mean[d][:, None, :] - eval_mean[d][:, :, None]
+                for d in range(D)]                                # [P, E, M]
+        cov_inv = planar.inv_sym(gm.cov, D)
+        md2_em = planar.quad_sym(cov_inv[:, :, None, :], diff, D)
+        norm_m = torch.sqrt((2.0 * math.pi) ** D * planar.det_sym(gm.cov, D))
+        lik_em = torch.exp(-0.5 * md2_em) / norm_m[:, None, :]
+        lik_em = torch.where(torch.isfinite(lik_em) & gm.alive[:, None, :],
+                             lik_em, zero)
+        int_before = gaussian.TINY + torch.einsum(
+            "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w_prev, zero))
+        int_after = gaussian.TINY + torch.einsum(
+            "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w, zero))
+        log_int_ratio = torch.where(
+            eval_valid, torch.log(int_before) - torch.log(int_after),
+            zero).sum(dim=1)
+        sum_before = torch.where(gm.alive, gm.w_prev, zero).sum(dim=1)
+        sum_after = torch.where(gm.alive, gm.w, zero).sum(dim=1)
+
+        # RFS measurement likelihood at the eval points: S = R (zero
+        # landmark covariance), gated (hpp:847-863)
+        predE = meas.measure_p(pose[:, None, :], eval_mean)
+        innov, _ = self.gates.innovation_p(
+            [predE.z[d][:, :, None] for d in range(dz)],
+            [z[:, d][None, None, :] for d in range(dz)])          # [P, E, Zc]
+        S_inv = planar.inv_sym(predE.S, dz)
+        md2 = planar.quad_sym(S_inv[:, :, :, None], innov, dz)
+        norm = torch.sqrt((2.0 * math.pi) ** dz * planar.det_sym(predE.S, dz))
+        L = torch.exp(-0.5 * md2) / norm[:, :, None]
+        L = torch.where(torch.isfinite(L)
+                        & (md2 <= cfg.weighting_md_threshold ** 2), L, zero)
+        L = L * eval_pd[:, :, None]
+
+        log_ci = math.log(meas.clutter_intensity_integral(nZ))
+        log_rfs = rfs_log_likelihood(L, eval_pd, eval_valid,
+                                     clutter_z[None, :], z_mask, log_ci,
+                                     z_dp_max=cfg.z_dp_max)
+        out = log_w + log_rfs + log_int_ratio + (sum_after - sum_before)
+        # no eval points: weight <- denorm_min (hpp:741-744)
+        return torch.where(n_eval == 0, torch.full_like(out, LOG_TINY), out)

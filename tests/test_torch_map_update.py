@@ -1,0 +1,167 @@
+"""The map_update2d twin against the JAX package's fused Pallas kernel
+(interpret mode) and its XLA formulas, on a mid-run state, with the
+tolerances of tests/test_map_update_fused.py."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rfs_slam_tpu.filters.rbphd import RBPHDFilter as JRBPHDFilter
+from rfs_slam_tpu.ops.ekf import correct_all as jcorrect_all
+from rfs_slam_tpu.ops.pallas.map_update2d import (fused_map_update2d as
+                                                  jfused, pack_params as
+                                                  jpack_params)
+from rfs_slam_tpu_torch import convert
+from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+from rfs_slam_tpu_torch.filters.rbphd import RBPHDFilter
+from rfs_slam_tpu_torch.io import sim2d
+from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
+from tests.test_rbphd_filter import build_filter
+from tests.torch_parity import CPU, assert_gm_close, jax_state, t
+
+
+@pytest.fixture(scope="module")
+def midrun():
+    """The port after 45 ground-truth-locked steps of a short simulation,
+    predicted once more, with that step's measurements; and the JAX filter
+    it was converted from."""
+    sim_cfg = sim2d.Sim2DConfig(timesteps=60, n_landmarks=20, n_segments=4)
+    data = sim2d.generate(sim_cfg, traj_seed=3, noise_seed=4, z_capacity=24)
+    jfilt = build_filter(sim_cfg, n_particles=16)
+    jfilt.cfg = dataclasses.replace(jfilt.cfg, map_capacity=128)
+    filt = convert.filter_from_numpy(jfilt, CPU)
+    gen = torch.Generator().manual_seed(1)
+    state, _ = app.run(filt, app.sim_inputs(data, steps=46), gen,
+                       sim_cfg.dt)
+    state = filt.predict(state, t(data.odometry[46], torch.float32),
+                         sim_cfg.dt, gen=gen)
+    assert int(state.gm.alive.sum()) > 100
+    return (jfilt, filt, state, t(data.z[46], torch.float32),
+            t(data.z_mask[46]))
+
+
+def planes(state):
+    gm = state.gm
+    return (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
+            gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive)
+
+
+def test_pack_params_matches_jax(midrun):
+    jfilt, filt, *_ = midrun
+    cfg = filt.cfg
+    np.testing.assert_array_equal(
+        np.float32(mu.pack_params(filt.meas, filt.gates,
+                                  cfg.new_gaussian_md_threshold,
+                                  cfg.birth_gaussian_weight)),
+        np.asarray(jpack_params(jfilt.meas, jfilt.gates,
+                                cfg.new_gaussian_md_threshold,
+                                cfg.birth_gaussian_weight)))
+
+
+def test_twin_matches_pallas_kernel(midrun):
+    jfilt, filt, state, z, z_mask = midrun
+    cfg = filt.cfg
+    params = mu.pack_params(filt.meas, filt.gates,
+                            cfg.new_gaussian_md_threshold,
+                            cfg.birth_gaussian_weight)
+    got = mu.map_update2d_plain(*planes(state), z, z_mask, params,
+                                cfg.new_per_z)
+    want = jfused(*(jnp.asarray(a.numpy()) for a in planes(state)),
+                  jnp.asarray(z.numpy()), jnp.asarray(z_mask.numpy()),
+                  jnp.asarray(np.float32(params)), new_per_z=cfg.new_per_z,
+                  interpret=True)
+    for name, rtol, atol in (("pd", 1e-6, 1e-7), ("col_sum", 5e-5, 1e-7),
+                             ("w", 5e-5, 1e-7), ("w_prev", 0, 0),
+                             ("K", 1e-4, 1e-6), ("cov_upd", 1e-4, 1e-6),
+                             ("z_exp", 1e-5, 1e-6), ("cand_w", 1e-5, 1e-8)):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=rtol, atol=atol, err_msg=name)
+    np.testing.assert_array_equal(got.unused.numpy(),
+                                  np.asarray(want.unused))
+    nz = np.asarray(want.cand_w) > 0
+    assert nz.sum() > 50
+    np.testing.assert_array_equal(got.cand_m.numpy()[nz],
+                                  np.asarray(want.cand_m)[nz])
+
+
+def test_twin_matches_xla_formulas(midrun):
+    """The twin against the JAX package's XLA map-update head, verbatim
+    from tests/test_map_update_fused.py."""
+    jfilt, filt, state, z, z_mask = midrun
+    cfg = filt.cfg
+    js = jax_state(convert.to_numpy(state), jax.random.PRNGKey(0))
+    gm, pose = js.gm, js.particles.pose
+    meas, gates = jfilt.meas, jfilt.gates
+    jz, jzm = jnp.asarray(z.numpy()), jnp.asarray(z_mask.numpy())
+    pd_raw, close = meas.pd_p(pose[:, None, :], gm.mean, gm.cov)
+    pd_raw = jnp.where(gm.alive, pd_raw, 0.0)
+    close = close & gm.alive
+    pd = jnp.where(close, 1.0, pd_raw)
+    corr = jcorrect_all(meas, gates, pose, gm.mean, gm.cov, jz)
+    cell = (gm.alive[:, None, :] & (pd[:, None, :] > 0.0)
+            & jzm[None, :, None]
+            & (corr.md2 <= cfg.new_gaussian_md_threshold ** 2)
+            & (corr.likelihood > 0.0))
+    w_tab = jnp.where(cell, pd[:, None, :] * gm.w[:, None, :]
+                      * corr.likelihood, 0.0)
+    col_sum = meas.clutter_intensity(jz) + jnp.sum(w_tab, axis=2)
+    w_tab = jnp.where(jzm[None, :, None], w_tab / col_sum[:, :, None], 0.0)
+    w_miss = (1.0 - pd) * gm.w
+    delta = pd * gm.w - jnp.sum(w_tab, axis=1)
+    comp = close & (gm.w > cfg.birth_gaussian_weight) & (delta > 0.0)
+    w_miss = jnp.where(comp, jnp.minimum(w_miss + delta, 1.0), w_miss)
+    unused = jzm[None, :] & ~jnp.any(w_tab > 0.0, axis=2)
+
+    got = mu.map_update2d_plain(*planes(state), z, z_mask, filt._map_params,
+                                cfg.new_per_z)
+    np.testing.assert_allclose(got.pd.numpy(), np.asarray(pd), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(got.col_sum.numpy(), np.asarray(col_sum),
+                               rtol=5e-5, atol=1e-7)
+    np.testing.assert_allclose(got.w.numpy(),
+                               np.asarray(jnp.where(gm.alive, w_miss, gm.w)),
+                               rtol=5e-5, atol=1e-7)
+    np.testing.assert_array_equal(got.unused.numpy(), np.asarray(unused))
+    for name in ("K", "cov_upd", "z_exp"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(corr, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def test_wrapper_runs_twin_on_cpu(midrun):
+    """For CPU tensors the wrapper is the twin and launches nothing."""
+    _, filt, state, z, z_mask = midrun
+    before = mu.launches
+    got = mu.fused_map_update2d(*planes(state), z, z_mask, filt._map_params)
+    want = mu.map_update2d_plain(*planes(state), z, z_mask, filt._map_params)
+    assert mu.launches == before
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_map_update_phase_matches_jax(midrun, cluster):
+    """filters/rbphd.py:_map_update end to end (head, exact top-k, m + K nu
+    at the selected cells, replace_weakest) against the JAX XLA path."""
+    jfilt, filt, state, z, z_mask = midrun
+    jcfg = dataclasses.replace(jfilt.cfg, fused_map_update="off",
+                               use_cluster_process=cluster)
+    jf = JRBPHDFilter(jfilt.motion, jfilt.lmk, jfilt.meas, jfilt.gates, jcfg)
+    pf = RBPHDFilter(filt.motion, filt.lmk, filt.meas, filt.gates,
+                     dataclasses.replace(filt.cfg,
+                                         use_cluster_process=cluster))
+    js = jax_state(convert.to_numpy(state), jax.random.PRNGKey(0))
+    gm_x, lw_x, un_x, fov_x, cz_x = jf._map_update(
+        js, jnp.asarray(z.numpy()), jnp.asarray(z_mask.numpy()), jfilt.meas)
+    gm_p, lw_p, un_p, fov_p, cz_p = pf._map_update(state, z, z_mask)
+    assert_gm_close(gm_p, gm_x)
+    np.testing.assert_allclose(lw_p.numpy(), np.asarray(lw_x), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(un_p.numpy(), np.asarray(un_x))
+    np.testing.assert_array_equal(fov_p.numpy(), np.asarray(fov_x))
+    np.testing.assert_allclose(cz_p.numpy(), np.asarray(cz_x))

@@ -1,0 +1,49 @@
+"""rfs_slam_tpu_torch imports, and runs a step, in a process where JAX and
+the JAX package cannot be imported (the GPU machine has no JAX)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "rfs_slam_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import rfs_slam_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        rfs_slam_tpu_torch.__path__, "rfs_slam_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    import torch
+    from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+    from rfs_slam_tpu_torch.io import sim2d
+    cfg = sim2d.Sim2DConfig(timesteps=8, n_landmarks=5, n_segments=2)
+    data = sim2d.generate(cfg, traj_seed=1, noise_seed=1, z_capacity=40)
+    filt = app.build_filter(cfg, torch.device("cpu"), n_particles=4)
+    _, best = app.run(filt, app.sim_inputs(data),
+                      torch.Generator().manual_seed(0), cfg.dt)
+    assert best.shape == (7, 3)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "rfs_slam_tpu")]
+    assert not bad, bad
+    print(len(names))
+""")
+
+
+def test_port_imports_and_steps_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"   # small ops: threads only add contention
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
