@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RB-PHD SLAM main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's RB-PHD SLAM paths once on one NVIDIA GPU.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. print the card's name and power limit;
-2. build both CUDA kernels from ``rfs_slam_tpu_torch/csrc`` with nvcc;
+2. build the three CUDA kernels from ``rfs_slam_tpu_torch/csrc``, one nvcc
+   each, all started together, and print each ptxas report;
 3. ``map_update2d``: kernel against its plain twin at the bench shape
    (P=200, M=128, Zc=40) on a mid-run state of the ``native/bl_dump``
    replay, with that replay's measurements;
 4. ``merge2d``: kernel against its plain twin on random mixtures with
    20-120 alive slots and on the same mid-run state;
+4b. ``merge3d``: kernel against its plain twin at Victoria Park's width
+   (P=100, N=512) on random 3-D mixtures with 40-400 alive slots and on the
+   merge input of the synthetic Victoria Park stream after 200 frames;
 5. the full bench-configuration replay of ``native/bl_dump`` (3,000 steps,
-   P=200) through both kernels: launch counts, finite outputs, and the
+   P=200) through both 2-D kernels: launch counts, finite outputs, and the
    median pose error within a divergence bound of 0.3 m (bench gate 0.12 m);
+5c. the Victoria Park path (P=100, M=512, Zc=24, 3-D maps, the
+   birth-candidate state machine) over the first 2,000 of the synthetic
+   stream's 7,230 frames (seed 0, no scans; depth cut to fit the call):
+   ``merge3d`` launches once per frame with measurements, finite outputs,
+   and the trajectory RMSE against the stream's GPS below dead
+   reckoning's and within a divergence bound;
+5d. 200 frames of a stream with lidar scans (the scan-dependent Pd);
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
 Each kernel's ``ms`` beside its twin's ``plain_ms`` is the median device
-time of 25 calls at the bench shape (see :func:`cuda_ms`).  Prints the
-kernel table, then the card, then the contract line
-``{"ok": true, "device": {...}}`` last.  Usage: ``python3 chip_smoke.py
-[--gates]`` from the repository root.
+time of 25 calls at its path's shape (see :func:`cuda_ms`); ``bound_ms``
+is the least time the card could take for the same work on this run's
+inputs (see :func:`bound`).  Prints the kernel table, then the card, then
+the contract line ``{"ok": true, "device": {...}}`` last.  Usage:
+``python3 chip_smoke.py [--gates]`` from the repository root.
 """
 
 from __future__ import annotations
@@ -42,6 +54,18 @@ DIVERGENCE_BOUND_M = 0.3
 REPLAY_GATE_M = 0.12       # bench.py IDENTICAL_DATA_ANCHOR_M
 SEED_MEDIAN_GATE_M = 0.15  # bench.py ACCURACY_ANCHOR_M
 QUEUE_SPIN_CYCLES = 40_000_000  # ~20 ms of a ~2 GHz SM clock
+VP_DIR = os.path.join(HERE, "build", "vp_synth")
+VP_FRAMES = 2000           # of the stream's 7,230: the depth cut
+VP_MIDRUN_FRAMES = 200
+VP_SCAN_FRAMES = 200
+# The JAX package on the same 2,000 frames on the CPU at P=32 (keys 0-5,
+# scripts/vp_synth_jax_rmse.py): 2.13-3.81 m on the four keys that held the
+# track, 14.9 and 28.1 m on two that lost it; dead reckoning 5.47 m.  The
+# bound is the largest RMSE of a run that held the track, rounded up.
+VP_DIVERGENCE_BOUND_M = 4.0
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def cuda_ms(torch, fn, n: int = 25, warmup: int = 3,
@@ -82,6 +106,61 @@ def kernel_vs_twin_ms(torch, name, kernel, twin):
     print(f"{name}: device ms {ms:.4f} (twin {plain_ms:.4f}); call ms "
           f"{call_ms:.4f} (twin {plain_call_ms:.4f})", flush=True)
     return ms, plain_ms
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_flop: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the f32 operations over the card's f32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flop / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def map_update_bound(args, out):
+    """Every input read once and every output written once; the operations
+    per slot (measure, H, S, its inverse, K, the updated covariance: ~60
+    FLOP), per (measurement, slot) cell (innovation, angle wrap, quadratic
+    form, likelihood, gates, weight and its normalisation: ~27 FLOP) and
+    the iterated per-column argmax (2 per slot and pass)."""
+    pose, z = args[0], args[9]
+    P, M = args[1].shape
+    Zc = z.shape[0]
+    T = args[12]
+    ins = [a for a in args[:11]]
+    outs = [out.pd, out.col_sum, out.w, out.w_prev, out.K, out.z_exp,
+            out.cov_upd, out.cand_w, out.cand_m, out.unused]
+    flop = P * M * 60 + P * Zc * M * (27 + 2 * T)
+    return bound(nbytes(*ins) + nbytes(*outs), flop)
+
+
+def merge_bound(gm_ops, gm, out, threshold, f_inflation, pair_flop,
+                inv_flop, merge_flop):
+    """Every plane read once and written once; the operations of this
+    input's passes: each particle runs passes until one merges nothing
+    (counted with the twin's passes), each pass inverts its alive slots'
+    covariances, gate-tests every pair of its alive slots once and merges
+    its pairs."""
+    t2 = threshold * threshold
+    active = gm.alive.new_ones(gm.alive.shape[0])
+    flop = 0.0
+    g = gm
+    for _ in range(8):
+        a = g.alive.sum(dim=1).double()
+        g2, _ = gm_ops._merge_pass(g, t2, f_inflation)
+        merged = a - g2.alive.sum(dim=1).double()
+        flop += float((active * (a * inv_flop + a * (a - 1) / 2 * pair_flop
+                                 + merged * merge_flop)).sum())
+        active = active & (merged > 0)
+        g = g2
+        if not bool(active.any()):
+            break
+    planes = [gm.mean, gm.cov, gm.w, gm.w_prev, gm.alive]
+    out_planes = [out.mean, out.cov, out.w, out.w_prev, out.alive]
+    return bound(nbytes(*planes) + nbytes(*out_planes), flop)
 
 
 def close(name, got, want, rtol, atol, mask=None):
@@ -139,7 +218,7 @@ def check_map_update(torch, mu, filt, state, z, z_mask):
           f"measurements, {int(nz.sum())} candidates)", flush=True)
     return (max(errs), *kernel_vs_twin_ms(
         torch, "map_update2d", lambda: mu.fused_map_update2d(*args),
-        lambda: mu.map_update2d_plain(*args)))
+        lambda: mu.map_update2d_plain(*args)), *map_update_bound(args, k))
 
 
 def random_mixtures(torch, GMState, rng, P, N, dev):
@@ -184,7 +263,86 @@ def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
     gm, thr, infl = cases[0][1:]
     return (max(errs), *kernel_vs_twin_ms(
         torch, "merge2d", lambda: mg.merge2d(gm, thr, infl),
-        lambda: mg.merge2d_plain(gm, thr, infl)))
+        lambda: mg.merge2d_plain(gm, thr, infl)),
+        *merge_bound(gm_ops, gm, mg.merge2d(gm, thr, infl), thr, infl,
+                     pair_flop=22, inv_flop=7, merge_flop=30))
+
+
+def random_mixtures3(torch, GMState, rng, P, N, dev):
+    """Random D=3 mixtures (tests/test_pallas_merge3d.py's: diameters
+    0.2-1.0), 40-400 alive slots per particle, alive first."""
+    mean = rng.uniform(-3, 3, size=(P, N, 3)).astype(np.float32)
+    mean[..., 2] = rng.uniform(0.2, 1.0, size=(P, N))
+    A = rng.normal(size=(P, N, 3, 3)).astype(np.float32) * 0.2
+    cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(3, dtype=np.float32)
+    w = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
+    alive = np.arange(N)[None, :] < rng.integers(40, 401, size=(P, 1))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return GMState(
+        mean=t(np.moveaxis(mean, -1, 0).copy()),
+        cov=t(np.stack([cov[..., i, j] for i in range(3)
+                        for j in range(i, 3)])),
+        w=t(w), w_prev=t(w * 0.5), alive=t(alive))
+
+
+def check_merge3d(torch, m3, gm_ops, GMState, filt, midrun_gm, dev):
+    """merge3d against its twin: alive exact, floats within
+    tests/test_pallas_merge3d.py's tolerances."""
+    cfg = filt.cfg
+    cases = [("mid-run", gm_ops.compact(midrun_gm, midrun_gm.capacity),
+              cfg.merge_threshold, cfg.merge_inflation)]
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        cases.append(("random", random_mixtures3(
+            torch, GMState, rng, cfg.n_particles, cfg.map_capacity, dev),
+            1.5, 1.5))
+    errs = []
+    for name, gm, thr, infl in cases:
+        k = m3.merge3d(gm, thr, infl)
+        p = m3.merge3d_plain(gm, thr, infl)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k.alive.cpu().numpy(),
+                                      p.alive.cpu().numpy(),
+                                      err_msg=f"merge3d alive ({name})")
+        a = p.alive.cpu().numpy()
+        errs += [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
+                 close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
+                 close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-4, a),
+                 close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
+        print(f"merge3d: kernel == twin on {name} mixtures "
+              f"({int(gm.count().sum())} -> {int(p.count().sum())} alive)",
+              flush=True)
+    gm, thr, infl = cases[0][1:]
+    return (max(errs), *kernel_vs_twin_ms(
+        torch, "merge3d", lambda: m3.merge3d(gm, thr, infl),
+        lambda: m3.merge3d_plain(gm, thr, infl)),
+        *merge_bound(gm_ops, gm, m3.merge3d(gm, thr, infl), thr, infl,
+                     pair_flop=45, inv_flop=25, merge_flop=60))
+
+
+def vp_streams():
+    """The synthetic Victoria Park streams (seed 0: 7,230 frames without
+    scans, and 200 frames with scans) and their config, written under
+    build/ once."""
+    from rfs_slam_tpu_torch.io import vp_synth
+
+    plain = os.path.join(VP_DIR, "seed0")
+    scans = os.path.join(VP_DIR, "seed0_scans")
+    if not os.path.exists(os.path.join(plain, "gps.dat")):
+        vp_synth.write(plain, seed=0)
+    if not os.path.exists(os.path.join(scans, "LASER.txt")):
+        vp_synth.write(scans, seed=0, n_frames=VP_SCAN_FRAMES, scans=True)
+    return plain, scans, vp_synth.write_config(os.path.join(VP_DIR,
+                                                            "config.xml"))
+
+
+def vp_finite(torch, state, outs):
+    alive = state.gm.alive
+    return (np.isfinite(outs["pose"]).all() and np.isfinite(outs["w"]).all()
+            and bool(torch.isfinite(state.particles.log_w).all())
+            and bool(torch.isfinite(state.gm.w[alive]).all())
+            and bool(torch.isfinite(state.gm.mean[:, alive]).all())
+            and bool(torch.isfinite(state.gm.cov[:, alive]).all()))
 
 
 def timed_run(torch, app, filt, inputs, seed, dt, dev):
@@ -208,12 +366,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
     from rfs_slam_tpu_torch.core.state import GMState
     from rfs_slam_tpu_torch.io import sim2d
+    from rfs_slam_tpu_torch.io import victoria_park as vp_io
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
     from rfs_slam_tpu_torch.ops import gm as gm_ops
     from rfs_slam_tpu_torch.ops.kernels import build
     from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
     from rfs_slam_tpu_torch.ops.kernels import merge2d as mg
+    from rfs_slam_tpu_torch.ops.kernels import merge3d as m3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -224,9 +386,13 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
-    # ---- 2. build
-    for name in ("map_update2d", "merge2d"):
-        build.load(name)
+    # ---- 2. build, one nvcc per kernel, all started together
+    names = ("map_update2d", "merge2d", "merge3d")
+    t0 = time.perf_counter()
+    build.load_all(names)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(names)} "
+          f"kernels", flush=True)
+    for name in names:
         secs, log = build.BUILD_LOG.get(name, (0.0, "(cached build)"))
         print(f"build {name}: {secs:.1f} s\n{log}", flush=True)
 
@@ -237,16 +403,28 @@ def main(argv=None) -> int:
     # ---- 3-4. kernels against their twins
     gen = torch.Generator(device=dev).manual_seed(0)
     state, z, z_mask = midrun(torch, app, filt, gen, dt)
-    mu_err, mu_ms, mu_plain = check_map_update(torch, mu, filt, state, z,
-                                               z_mask)
-    mg_err, mg_ms, mg_plain = check_merge(torch, mg, gm_ops, GMState, filt,
-                                          state, z, z_mask, dev)
+    mu_row = check_map_update(torch, mu, filt, state, z, z_mask)
+    mg_row = check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask,
+                         dev)
 
-    # ---- 5. the full replay through both kernels
+    # ---- 4b. merge3d on the Victoria Park path's merge inputs
+    vp_plain, vp_scans, vp_cfg = vp_streams()
+    vp_filt, vp_icov, ack = vp_app.build(XmlConfig(vp_cfg), device=dev)
+    stream = vp_io.load(vp_plain, z_capacity=vp_app.Z_CAPACITY, ackerman=ack)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vp_state, _ = vp_app.run(vp_filt, vp_icov,
+                             vp_app.head(stream, VP_MIDRUN_FRAMES), gen)
+    j = VP_MIDRUN_FRAMES
+    vp_gm = vp_filt._map_update(
+        vp_state, torch.as_tensor(stream.z[j], dtype=torch.float32,
+                                  device=dev),
+        torch.as_tensor(stream.z_mask[j], device=dev))[0]
+    m3_row = check_merge3d(torch, m3, gm_ops, GMState, vp_filt, vp_gm, dev)
+
+    # ---- 5. the full replay through both 2-D kernels
     gt, inputs = app.load_bl_dump(BL_DUMP)
     n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
-    mu.launches = 0
-    mg.launches = 0
+    mu.launches = mg.launches = m3.launches = 0
     final, best, wall = timed_run(torch, app, filt, inputs, 0, dt, dev)
     launches = {"map_update2d": mu.launches, "merge2d": mg.launches}
     for name, n in launches.items():
@@ -273,6 +451,57 @@ def main(argv=None) -> int:
         raise AssertionError(f"replay median pose error {err} m > "
                              f"{DIVERGENCE_BOUND_M} m")
 
+    # ---- 5c. the Victoria Park path, first VP_FRAMES frames
+    frames = vp_app.head(stream, VP_FRAMES)
+    n_meas_frames = int(frames.z_mask.any(axis=1).sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    mu.launches = mg.launches = m3.launches = 0
+    t0 = time.perf_counter()
+    vp_state, outs = vp_app.run(vp_filt, vp_icov, frames, gen)
+    torch.cuda.synchronize()
+    vp_wall = time.perf_counter() - t0
+    launches["merge3d"] = m3.launches
+    if m3.launches != n_meas_frames:
+        raise AssertionError(f"merge3d: {m3.launches} launches on the "
+                             f"Victoria Park path, {n_meas_frames} frames "
+                             f"had measurements")
+    if not vp_finite(torch, vp_state, outs):
+        raise AssertionError("Victoria Park path produced non-finite "
+                             "outputs")
+    rmse, dr_rmse = vp_app.trajectory_rmse(frames, outs)
+    print(json.dumps({
+        "path": "victoria_park synthetic stream seed 0",
+        "frames": len(frames.t), "frames_cut_from": len(stream.t),
+        "particles": vp_filt.cfg.n_particles,
+        "map_capacity": vp_filt.cfg.map_capacity, "wall_s": vp_wall,
+        "frames_per_s": len(frames.t) / vp_wall, "rmse_m": rmse,
+        "dead_reckoning_rmse_m": dr_rmse,
+        "divergence_bound_m": VP_DIVERGENCE_BOUND_M,
+        "merge3d_launches": m3.launches,
+        "best_alive_mean": float(outs["alive"].sum(axis=1).mean()),
+        "final_alive_mean": float(vp_state.gm.alive.sum(dim=1).float()
+                                  .mean())}), flush=True)
+    if not rmse < dr_rmse:
+        raise AssertionError(f"Victoria Park RMSE {rmse} m is not below "
+                             f"dead reckoning's {dr_rmse} m")
+    if not rmse <= VP_DIVERGENCE_BOUND_M:
+        raise AssertionError(f"Victoria Park RMSE {rmse} m > "
+                             f"{VP_DIVERGENCE_BOUND_M} m")
+
+    # ---- 5d. the scan-dependent Pd on a stream with lidar scans
+    scan_frames = vp_io.load(vp_scans, z_capacity=vp_app.Z_CAPACITY,
+                             ackerman=ack)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scan_state, scan_outs = vp_app.run(vp_filt, vp_icov, scan_frames, gen)
+    if not vp_finite(torch, scan_state, scan_outs):
+        raise AssertionError("the scan stream produced non-finite outputs")
+    print(json.dumps({
+        "path": "victoria_park synthetic stream seed 0 with scans",
+        "frames": len(scan_frames.t),
+        "rmse_m": vp_app.trajectory_rmse(scan_frames, scan_outs)[0]}),
+        flush=True)
+
     # ---- 6. the 4-seed simulation median
     if args.gates:
         data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1,
@@ -291,18 +520,21 @@ def main(argv=None) -> int:
                           "bench_gate_ok": med <= SEED_MEDIAN_GATE_M}),
               flush=True)
 
-    kernels = [
-        {"name": "map_update2d", "route": "cuda",
-         "source": "rfs_slam_tpu_torch/csrc/map_update2d.cu",
-         "replaces": "rfs_slam_tpu/ops/pallas/map_update2d.py:309",
-         "launches": launches["map_update2d"], "max_abs_err": mu_err,
-         "ms": mu_ms, "plain_ms": mu_plain},
-        {"name": "merge2d", "route": "cuda",
-         "source": "rfs_slam_tpu_torch/csrc/merge2d.cu",
-         "replaces": "rfs_slam_tpu/ops/pallas/merge2d.py:194",
-         "launches": launches["merge2d"], "max_abs_err": mg_err,
-         "ms": mg_ms, "plain_ms": mg_plain},
-    ]
+    # no single PyTorch call computes any of these functions: library_ms
+    # stays null
+    kernels = []
+    for name, pallas, row in (
+            ("map_update2d", "map_update2d.py:309", mu_row),
+            ("merge2d", "merge2d.py:194", mg_row),
+            ("merge3d", "merge3d.py:200", m3_row)):
+        err, ms, plain_ms, bound_ms, bound_by = row
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"rfs_slam_tpu_torch/csrc/{name}.cu",
+            "replaces": f"rfs_slam_tpu/ops/pallas/{pallas}",
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ import torch
 
 from rfs_slam_tpu_torch.filters.rbphd import RBPHDConfig, RBPHDFilter
 from rfs_slam_tpu_torch.models.measurement import RangeBearing
-from rfs_slam_tpu_torch.models.motion import Odometry2D, StaticLandmark
+from rfs_slam_tpu_torch.models.motion import (Ackerman2D, Odometry2D,
+                                              StaticLandmark)
+from rfs_slam_tpu_torch.models.victoria_park import VictoriaPark
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates
 
 
@@ -63,14 +65,22 @@ def to_numpy(obj):
     return out
 
 
+# the port's model for each of the JAX package's, by class name
+MODELS = {cls.__name__: cls for cls in (Odometry2D, Ackerman2D,
+                                        StaticLandmark, RangeBearing,
+                                        VictoriaPark)}
+
+
 def filter_from_numpy(filt, device: torch.device) -> RBPHDFilter:
-    """An :class:`RBPHDFilter` wired like ``filt`` (the JAX package's
-    filter with Odometry2D, StaticLandmark, RangeBearing and range-bearing
-    gates)."""
+    """An :class:`RBPHDFilter` wired like ``filt``, the JAX package's filter
+    with the 2-D simulation's models (Odometry2D, StaticLandmark,
+    RangeBearing) or Victoria Park's (Ackerman2D, StaticLandmark with
+    per-dt^2 noise, VictoriaPark)."""
+    def model(m):
+        return from_numpy(MODELS[type(m).__name__], m, device)
+
     return RBPHDFilter(
-        from_numpy(Odometry2D, filt.motion, device),
-        from_numpy(StaticLandmark, filt.lmk, device),
-        from_numpy(RangeBearing, filt.meas, device),
+        model(filt.motion), model(filt.lmk), model(filt.meas),
         from_numpy(InnovationGates, filt.gates, device),
         from_numpy(RBPHDConfig, filt.cfg, device),
     )

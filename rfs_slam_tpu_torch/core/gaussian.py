@@ -27,6 +27,24 @@ def wrap_angle(a: torch.Tensor) -> torch.Tensor:
     return a - TWO_PI * torch.round(a / TWO_PI)
 
 
+def chol2(S: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of one 2x2 SPD matrix, in closed form."""
+    l00 = torch.sqrt(S[0, 0])
+    l10 = S[1, 0] / l00
+    l11 = torch.sqrt(torch.clamp(S[1, 1] - l10 * l10, min=0.0))
+    z = torch.zeros_like(l00)
+    return torch.stack([torch.stack([l00, z]), torch.stack([l10, l11])])
+
+
+def sample(mean: torch.Tensor, cov: torch.Tensor,
+           noise: torch.Tensor) -> torch.Tensor:
+    """``mean + chol(cov) @ noise`` for one 2x2 or 3x3 ``cov`` shared by the
+    batch ``mean[..., D]``, with the standard-normal draws ``noise[..., D]``
+    injected (RandomVec.hpp:457-496)."""
+    L = chol2(cov) if cov.shape[-1] == 2 else chol3(cov)
+    return mean + noise @ L.T
+
+
 def chol3(S: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of one 3x3 SPD matrix, in closed form (the
     reference's RandomVec sampling factor, RandomVec.hpp:457-496)."""

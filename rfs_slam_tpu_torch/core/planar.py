@@ -37,24 +37,58 @@ def pack_sym(S: torch.Tensor) -> torch.Tensor:
 
 
 def det_sym(s, d: int):
-    """Determinant of a packed symmetric ``[T, ...]``, D in 1..2."""
+    """Determinant of a packed symmetric ``[T, ...]``, D in 1..3 (the JAX
+    package's formulas and summation order: gates flip on them)."""
     m = sym_rows(s, d)
     if d == 1:
         return m[0][0]
     if d == 2:
         return m[0][0] * m[1][1] - m[0][1] * m[0][1]
+    if d == 3:
+        return (m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[1][2])
+                - m[0][1] * (m[0][1] * m[2][2] - m[1][2] * m[0][2])
+                + m[0][2] * (m[0][1] * m[1][2] - m[1][1] * m[0][2]))
     raise NotImplementedError(f"det_sym: D={d}")
 
 
 def inv_sym(s, d: int):
-    """Inverse of a packed symmetric ``[T, ...]`` via the adjugate, D in 1..2."""
+    """Inverse of a packed symmetric ``[T, ...]`` via the adjugate, D in 1..3."""
     m = sym_rows(s, d)
     dt = det_sym(s, d)
     if d == 1:
         return torch.stack([1.0 / m[0][0]])
     if d == 2:
         return torch.stack([m[1][1] / dt, -m[0][1] / dt, m[0][0] / dt])
+    if d == 3:
+        c00 = m[1][1] * m[2][2] - m[1][2] * m[1][2]
+        c01 = m[0][2] * m[1][2] - m[0][1] * m[2][2]
+        c02 = m[0][1] * m[1][2] - m[0][2] * m[1][1]
+        c11 = m[0][0] * m[2][2] - m[0][2] * m[0][2]
+        c12 = m[0][2] * m[0][1] - m[0][0] * m[1][2]
+        c22 = m[0][0] * m[1][1] - m[0][1] * m[0][1]
+        return torch.stack([c00 / dt, c01 / dt, c02 / dt,
+                            c11 / dt, c12 / dt, c22 / dt])
     raise NotImplementedError(f"inv_sym: D={d}")
+
+
+def chol_sym(s, d: int):
+    """Lower Cholesky factor (row-list) of a packed symmetric, D in 1..3."""
+    m = sym_rows(s, d)
+    if d == 1:
+        return [[torch.sqrt(m[0][0])]]
+    l00 = torch.sqrt(m[0][0])
+    l10 = m[0][1] / l00
+    l11 = torch.sqrt(torch.clamp(m[1][1] - l10 * l10, min=0.0))
+    z = torch.zeros_like(l00)
+    if d == 2:
+        return [[l00, z], [l10, l11]]
+    if d == 3:
+        l20 = m[0][2] / l00
+        l21 = (m[1][2] - l20 * l10) / l11
+        l22 = torch.sqrt(torch.clamp(m[2][2] - l20 * l20 - l21 * l21,
+                                     min=0.0))
+        return [[l00, z, z], [l10, l11, z], [l20, l21, l22]]
+    raise NotImplementedError(f"chol_sym: D={d}")
 
 
 def quad_sym(s, v, d: int):

@@ -96,6 +96,10 @@ class BirthCandidates:
                               device=device),
         )
 
+    @property
+    def capacity(self) -> int:
+        return self.alive.shape[1]
+
     def gather_p(self, ancestors: torch.Tensor) -> "BirthCandidates":
         return BirthCandidates(
             mean=self.mean.index_select(1, ancestors),

@@ -1,18 +1,40 @@
-"""Process models as batched functions (port of
-the JAX package's ``models/motion.py``, the main path's two models).
+"""Process models as batched functions (port of the JAX package's
+``models/motion.py``: the 2-D simulation's Odometry2D and the Victoria
+Park vehicle's Ackerman2D, and the static landmark model).
 
-``Odometry2D.sample`` takes its standard-normal draws as ``noise`` so that
-a caller can replay another generator's stream; without it, it draws from
-the caller's ``torch.Generator``.
+``sample`` adds input and/or additive white noise like
+``ProcessModel::sample`` (ProcessModel.hpp:125-150).  The standard-normal
+draws are injected (``noise`` [..., 3] for the model noise, ``input_noise``
+[..., DU] for the input noise) so that a caller can replay another
+generator's stream; without them they come from the caller's
+``torch.Generator``.  ``use_input_noise`` is a host bool: the Victoria Park
+frame loop reads its per-substep flag from host data.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from rfs_slam_tpu_torch.core import gaussian, planar
+
+
+def _draw(shape, like, gen):
+    return torch.randn(shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+def _sample_input(pose, u, use_input_noise, input_cov, input_noise, gen):
+    """The input broadcast over the particles, sampled from N(u, U) when
+    ``use_input_noise`` (ProcessModel.hpp:133-140)."""
+    u = u.expand(pose.shape[:-1] + u.shape[-1:])
+    if input_cov is None or not use_input_noise:
+        return u
+    if input_noise is None:
+        input_noise = _draw(u.shape, u, gen)
+    return gaussian.sample(u, input_cov, input_noise)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,27 +58,86 @@ class Odometry2D:
 
     def sample(self, pose: torch.Tensor, u: torch.Tensor, dt,
                noise: torch.Tensor | None = None,
-               gen: torch.Generator | None = None) -> torch.Tensor:
-        """Step, then add chol(Q) @ n with n ~ N(0, I) per particle
-        (ProcessModel::sample, ProcessModel.hpp:125-150).  ``noise``:
-        [..., 3] standard-normal draws; drawn from ``gen`` when None."""
+               gen: torch.Generator | None = None,
+               use_model_noise: bool = True, use_input_noise: bool = False,
+               input_cov: torch.Tensor | None = None,
+               input_noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Step, then add chol(Q) @ n with n ~ N(0, I) per particle, the
+        angle wrapped after."""
+        u = _sample_input(pose, u, use_input_noise, input_cov, input_noise,
+                          gen)
         out = self.step(pose, u, dt)
+        if not use_model_noise:
+            return out
         if noise is None:
-            noise = torch.randn(out.shape, generator=gen, dtype=out.dtype,
-                                device=out.device)
-        out = out + noise @ gaussian.chol3(self.Q).T
+            noise = _draw(out.shape, out, gen)
+        out = gaussian.sample(out, self.Q, noise)
         return torch.cat([out[..., :2], gaussian.wrap_angle(out[..., 2:])],
                          dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
-class StaticLandmark:
-    """Landmark process model: identity mean, covariance grows by ``Q``
-    ([D, D], pre-scaled by dt^2; ProcessModel.hpp:195-219)."""
+class Ackerman2D:
+    """Ackerman-steered vehicle (reference: ProcessModel_Ackerman2D.cpp:49-77).
+
+    Input ``[v, r]``: rear-wheel speed and steering angle.  Geometry of the
+    Victoria Park vehicle: rear-axle-to-encoder offset ``h``, wheelbase
+    ``l``, sensor offset ``(dx, dy)``; the pose is the sensor point's.
+    """
 
     Q: torch.Tensor
+    h: float = 0.76
+    l: float = 2.83
+    dx: float = 0.5
+    dy: float = 0.5
+
+    def step(self, pose: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
+        v, r = u[..., 0], u[..., 1]
+        theta = pose[..., 2]
+        c, s = torch.cos(theta), torch.sin(theta)
+        tan_r = torch.tan(r)
+        v = v / (1.0 - tan_r * self.h / self.l)
+        dxs = dt * (v * c - v / self.l * tan_r * (self.dx * s + self.dy * c))
+        dys = dt * (v * s + v / self.l * tan_r * (self.dx * c - self.dy * s))
+        th = theta + dt * v / self.l * tan_r
+        # single-branch wrap, exactly as the reference (+-2 pi once)
+        th = torch.where(th > np.pi, th - 2 * np.pi, th)
+        th = torch.where(th < -np.pi, th + 2 * np.pi, th)
+        return torch.stack([pose[..., 0] + dxs, pose[..., 1] + dys, th],
+                           dim=-1)
+
+    def sample(self, pose: torch.Tensor, u: torch.Tensor, dt,
+               noise: torch.Tensor | None = None,
+               gen: torch.Generator | None = None,
+               use_model_noise: bool = True, use_input_noise: bool = False,
+               input_cov: torch.Tensor | None = None,
+               input_noise: torch.Tensor | None = None) -> torch.Tensor:
+        u = _sample_input(pose, u, use_input_noise, input_cov, input_noise,
+                          gen)
+        out = self.step(pose, u, dt)
+        if not use_model_noise:
+            return out
+        if noise is None:
+            noise = _draw(out.shape, out, gen)
+        return gaussian.sample(out, self.Q, noise)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticLandmark:
+    """Landmark process model: identity mean, covariance grows by ``Q``
+    ([D, D]; ProcessModel.hpp:195-219).  The sim apps pre-scale ``Q`` by
+    dt^2; ``per_dt2`` scales it at step time instead (the Victoria Park
+    wiring, rbphdslam_VictoriaPark.cpp:508-510)."""
+
+    Q: torch.Tensor
+    per_dt2: bool = False
 
     def static_step_p(self, mean: torch.Tensor, cov: torch.Tensor, dt):
-        """Plane-layout step: ``cov[T, ...]`` packed."""
-        qp = planar.pack_sym(self.Q)
+        """Plane-layout step: ``cov[T, ...]`` packed.  dt^2 is formed in
+        float32, as the JAX package forms it."""
+        q = self.Q
+        if self.per_dt2:
+            d = np.float32(dt)
+            q = q * float(d * d)
+        qp = planar.pack_sym(q)
         return mean, cov + qp.reshape(qp.shape + (1,) * (cov.ndim - 1))

@@ -34,6 +34,13 @@ class InnovationGates:
         return cls(thresholds=(float(range_t), float(bearing_t)),
                    wrap_dims=(1,))
 
+    @classmethod
+    def victoria_park(cls, range_t: float = -1.0, bearing_t: float = -1.0,
+                      diam_t: float = -1.0):
+        """KalmanFilter_VictoriaPark gates (KalmanFilter_VictoriaPark.hpp:56-74)."""
+        return cls(thresholds=(float(range_t), float(bearing_t),
+                               float(diam_t)), wrap_dims=(1,))
+
     def innovation_p(self, z_exp, z_act):
         """Plane-layout innovation: returns (list of DZ planes, ok plane)."""
         innov = []
@@ -110,3 +117,43 @@ def correct_all(model, gates: InnovationGates, pose: torch.Tensor,
         K=torch.stack([K[d][e] for d in range(D) for e in range(DZ)]),
         likelihood=lik, md2=md2, valid=valid, measure_valid=pred.valid,
     )
+
+
+def correct_single(model, gates: InnovationGates, pose: torch.Tensor,
+                   lm_mean: torch.Tensor, lm_cov: torch.Tensor, z):
+    """Single-measurement EKF correction of each landmark of the batch.
+
+    ``pose`` (..., 3); ``lm_mean`` [D, ...], ``lm_cov`` [T, ...] and ``z``
+    [DZ, ...] planes, batch axes aligned.  Returns ``(mean, cov,
+    likelihood, md2, valid)``; where the update is invalid, or not finite
+    (a degenerate input such as r = 0: the NaN guard of
+    KalmanFilter.hpp:253-254), the landmark comes back unchanged (the
+    reference skips the update, KalmanFilter.hpp:215-217).
+    """
+    D = lm_mean.shape[0]
+    pred = model.measure_p(pose, lm_mean, lm_cov)
+    DZ = len(pred.z)
+    S_inv = planar.inv_sym(pred.S, DZ)
+    C_rows = planar.sym_rows(lm_cov, D)
+    K = planar.matmul(planar.matmul(C_rows, planar.transpose_rows(pred.H)),
+                      planar.sym_rows(S_inv, DZ))
+    KH = planar.matmul(K, pred.H)
+    A = [[(1.0 if i == j else 0.0) - KH[i][j] for j in range(D)]
+         for i in range(D)]
+    U = planar.matmul(A, C_rows)
+    cov_upd = torch.stack(
+        [0.5 * (U[i][j] + U[j][i]) for i in range(D) for j in range(i, D)])
+    innov, gate_ok = gates.innovation_p(list(pred.z),
+                                        [z[d] for d in range(DZ)])
+    md2 = planar.quad_sym(S_inv, innov, DZ)
+    norm = torch.sqrt((2.0 * math.pi) ** DZ * planar.det_sym(pred.S, DZ))
+    lik = _finite_or_zero(torch.exp(-0.5 * md2) / norm)
+    mean_upd = torch.stack(
+        [lm_mean[d] + sum(K[d][e] * innov[e] for e in range(DZ))
+         for d in range(D)])
+    finite = (torch.isfinite(mean_upd).all(dim=0)
+              & torch.isfinite(cov_upd).all(dim=0))
+    valid = gate_ok & pred.valid & finite
+    return (torch.where(valid, mean_upd, lm_mean),
+            torch.where(valid, cov_upd, lm_cov),
+            torch.where(valid, lik, torch.zeros_like(lik)), md2, valid)

@@ -7,8 +7,9 @@ the JAX package's ``ops/gm.py``).
   exact fixed-shape equivalent of append + compact;
 * ``merge``   — the pairwise merge fixpoint (GaussianMixture.hpp:394-475) in
   parallel passes of disjoint lowest-index-first pairs.  ``merge_fixpoint``
-  is the plain twin of the CUDA kernel in
-  :mod:`rfs_slam_tpu_torch.ops.kernels.merge2d`.
+  is the plain twin of the CUDA kernels in
+  :mod:`rfs_slam_tpu_torch.ops.kernels.merge2d` (D=2) and
+  :mod:`rfs_slam_tpu_torch.ops.kernels.merge3d` (D=3).
 
 Every order-sensitive top-k goes through :func:`planar.topk_stable`, which
 breaks ties by the lower index first as the JAX package does.
@@ -21,6 +22,7 @@ import torch
 from rfs_slam_tpu_torch.core import planar
 from rfs_slam_tpu_torch.core.state import GMState
 from rfs_slam_tpu_torch.ops.kernels import merge2d as merge2d_kernel
+from rfs_slam_tpu_torch.ops.kernels import merge3d as merge3d_kernel
 
 _NEG_INF = float("-inf")
 
@@ -162,8 +164,8 @@ def _merge_pass(gm: GMState, t2, f_inflation):
 def merge_fixpoint(gm: GMState, threshold, f_inflation,
                    max_passes: int = 8) -> GMState:
     """Merge passes until one merges nothing or ``max_passes`` have run (the
-    first pass always runs).  The plain twin of the merge2d kernel; expects
-    slots compacted (see :func:`merge`)."""
+    first pass always runs).  The plain twin of the merge2d and merge3d
+    kernels; expects slots compacted (see :func:`merge`)."""
     t2 = threshold * threshold
     for _ in range(max_passes):
         gm, n = _merge_pass(gm, t2, f_inflation)
@@ -179,9 +181,10 @@ def merge(gm: GMState, threshold, f_inflation,
     Slots are sorted by descending weight at entry to reproduce the
     reference's weight-sorted vector: the pass's lowest-index pair claiming
     depends on slot order, and unsorted entry measurably degrades the
-    filter.  The merge runs in the CUDA kernel for CUDA tensors and in its
-    plain twin for CPU tensors (:func:`merge2d_kernel.merge2d`).
+    filter.  The merge runs in the CUDA kernel of its dimension for CUDA
+    tensors and in the plain twin for CPU tensors
+    (:func:`merge2d_kernel.merge2d`, :func:`merge3d_kernel.merge3d`).
     """
     gm = compact(gm, gm.capacity)
-    return merge2d_kernel.merge2d(gm, threshold, f_inflation,
-                                  max_passes=max_passes)
+    kernel = merge3d_kernel.merge3d if gm.dim == 3 else merge2d_kernel.merge2d
+    return kernel(gm, threshold, f_inflation, max_passes=max_passes)

@@ -27,6 +27,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-kernel flags: merge3d rounds every product and sum as its twin does,
+# so its gate decides boundary pairs as the twin decides them
+EXTRA_FLAGS = {"merge3d": ["-fmad=false"]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas report) of the builds made by this process
@@ -55,24 +58,44 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _target(name: str):
+    """(source, library path, nvcc flags) of kernel ``name``."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+    return src, out, flags
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+    return load_all([name])[0]
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """Compile the kernels ``names`` that are not built yet, one nvcc each,
+    all started together, then load them all."""
+    pending = []
+    for name in names:
+        if name in _LIBS:
+            continue
+        src, out, flags = _target(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            pending.append((name, src, out, tmp, proc, time.perf_counter()))
+    # every nvcc is waited for before a failure is raised
+    done = [(*p, p[4].communicate()[1], time.perf_counter()) for p in pending]
+    for name, src, out, tmp, proc, t0, err, t1 in done:
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{err}")
         os.replace(tmp, out)
-        BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr.strip())
-    lib = ctypes.CDLL(out)
-    _LIBS[name] = lib
-    return lib
+        BUILD_LOG[name] = (t1 - t0, err.strip())
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(_target(name)[1])
+    return [_LIBS[name] for name in names]

@@ -1,0 +1,237 @@
+"""The port's RB-PHD paths on one NVIDIA GPU: one whole run, then a phase
+breakdown of a profiled window.
+
+``--path vp`` (default): the Victoria Park path on the synthetic stream
+(frames/s, trajectory RMSE against its GPS and dead reckoning's).
+``--path replay``: the bench filter on the ``native/bl_dump`` replay
+(steps/s, median pose error).
+
+The window is a second run of ``start + length`` frames (or steps) whose
+last ``length`` run under ``torch.profiler``, each filter phase inside a
+``record_function`` range (births, predict, map update, importance, merge,
+prune, resample; ``update`` spans the last five).  On the replay the births
+run inside ``predict``, so its range includes theirs.  Prints the card's
+name and power limit, one JSON line for the whole run and one for the
+window: host and device ms per frame for each phase, the device's busy time
+and idle share, kernel launches per frame, and the kernels that take the
+most device time.
+
+Usage, from the repository root on a machine with the card::
+
+    python3 scripts/profile_torch.py [--path vp] [--frames 7230]
+        [--window 1000:20]
+    python3 scripts/profile_torch.py --path replay --window 1000:60
+"""
+
+import argparse
+import bisect
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app2d  # noqa: E402
+from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as app  # noqa: E402
+from rfs_slam_tpu_torch.io import sim2d  # noqa: E402
+from rfs_slam_tpu_torch.io import victoria_park as vp_io  # noqa: E402
+from rfs_slam_tpu_torch.io import vp_synth  # noqa: E402
+from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig  # noqa: E402
+from rfs_slam_tpu_torch.ops import gm as gm_ops  # noqa: E402
+
+PHASES = ("births", "predict", "map_update", "importance", "merge", "prune",
+          "resample", "update")
+
+
+def ranged(name, fn):
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+    return wrapped
+
+
+def instrument(filt):
+    """Wrap each phase in a profiler range (this process only)."""
+    filt._add_birth_gaussians = ranged("births", filt._add_birth_gaussians)
+    filt.predict = ranged("predict", filt.predict)
+    filt._map_update = ranged("map_update", filt._map_update)
+    filt._importance_weights = ranged("importance",
+                                      filt._importance_weights)
+    filt._resample_phase = ranged("resample", filt._resample_phase)
+    filt.update = ranged("update", filt.update)
+    gm_ops.merge = ranged("merge", gm_ops.merge)
+    gm_ops.prune = ranged("prune", gm_ops.prune)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def vp_path(args, dev):
+    """(filter, whole-run record, warm(start) -> the state before frame
+    ``start``, step(state, j) -> state) of the Victoria Park path."""
+    data = os.path.join(ROOT, "build", "vp_synth", f"seed{args.seed}")
+    if not os.path.exists(os.path.join(data, "gps.dat")):
+        vp_synth.write(data, seed=args.seed)
+    cfg = XmlConfig(vp_synth.write_config(os.path.join(data, "config.xml")))
+    filt, icov, ack = app.build(cfg, device=dev)
+    stream = vp_io.load(data, z_capacity=app.Z_CAPACITY, ackerman=ack)
+    frames = app.head(stream, args.frames)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (state, outs), wall = timed(lambda: app.run(filt, icov, frames, gen))
+    rmse, dr = app.trajectory_rmse(frames, outs)
+    record = {
+        "run": "victoria_park synthetic", "frames": len(frames.t),
+        "wall_s": wall, "frames_per_s": len(frames.t) / wall,
+        "rmse_m": rmse, "dead_reckoning_rmse_m": dr,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "final_alive_mean": float(state.gm.alive.sum(dim=1).float().mean())}
+
+    dts = np.where(frames.pred_valid, frames.pred_dt, 0).astype(np.float32)
+    put = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                      device=dev)
+    u, z = put(frames.pred_u), put(frames.z)
+    zm, has_z = put(frames.z_mask, torch.bool), frames.z_mask.any(axis=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(state, j):
+        return app.step_frame(filt, state, filt.meas, dts[j], u[j],
+                              frames.pred_noise[j], icov, z[j], zm[j],
+                              bool(has_z[j]), gen)
+
+    def warm(start):
+        state = filt.init_state(torch.zeros(3, device=dev), dz=3, d=3)
+        for j in range(start):
+            state = step(state, j)
+        return state
+
+    return filt, record, warm, step
+
+
+def replay_path(args, dev):
+    """The same four for the bench filter on the ``native/bl_dump``
+    replay (the window must start after the ground-truth lock)."""
+    if int(args.window.split(":")[0]) < app2d.GT_LOCK_STEPS:
+        raise SystemExit("--window must start after the ground-truth lock "
+                         f"(step {app2d.GT_LOCK_STEPS})")
+    dt = sim2d.Sim2DConfig().dt
+    filt = app2d.build_filter(sim2d.Sim2DConfig(), dev)
+    gt, inputs = app2d.load_bl_dump(os.path.join(ROOT, "native", "bl_dump"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (state, best), wall = timed(lambda: app2d.run(filt, inputs, gen, dt))
+    record = {
+        "run": "native/bl_dump replay", "steps": len(best), "wall_s": wall,
+        "steps_per_s": len(best) / wall,
+        "median_pose_err_m": app2d.median_pose_error(best, gt[1:]),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "final_alive_mean": float(state.gm.alive.sum(dim=1).float().mean())}
+
+    put = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                      device=dev)
+    odo, z, zm = put(inputs[0]), put(inputs[1]), put(inputs[2], torch.bool)
+    has_z = np.asarray(inputs[2]).any(axis=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def warm(start):
+        # the steps before the window, ground-truth lock included
+        return app2d.run(filt, tuple(a[:start] for a in inputs), gen, dt)[0]
+
+    def step(state, k):
+        state = filt.predict(state, odo[k], dt, gen=gen)
+        return filt.update(state, z[k], zm[k], gen=gen, has_z=bool(has_z[k]))
+
+    return filt, record, warm, step
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("vp", "replay"), default="vp")
+    ap.add_argument("--frames", type=int, default=7230,
+                    help="frames of the whole VP run")
+    ap.add_argument("--window", default="1000:20", help="START:LENGTH")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the VP stream's seed")
+    args = ap.parse_args()
+    start, length = (int(x) for x in args.window.split(":"))
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    filt, record, warm, step = (vp_path if args.path == "vp"
+                                else replay_path)(args, dev)
+    print(json.dumps({**record, "card": card}), flush=True)
+
+    # the profiled window
+    state = warm(start)
+    instrument(filt)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for j in range(start, start + length):
+            state = step(state, j)
+        torch.cuda.synchronize()
+        win = time.perf_counter() - t0
+    # host ms: the ranges' own wall on the host.  device ms: the kernels
+    # inside the range's mirror on the device timeline (first to last of
+    # its kernels); "device_ms_ops" the same from the host side
+    # (FunctionEvent.device_time_total, the range's ops' kernels).  The
+    # mirrors are left out of the busy sum.
+    events = prof.events()
+    dev_t = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events
+               if e.device_type == dev_t and e.name not in PHASES]
+    per = {}
+    for name in PHASES:
+        host = [e for e in events
+                if e.name == name and e.device_type != dev_t]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events
+                       if e.name == name and e.device_type == dev_t)
+        starts = [a for a, _ in spans]
+        inside = 0.0
+        for k in kernels:
+            i = bisect.bisect_right(starts, k.time_range.start) - 1
+            if i >= 0 and k.time_range.start < spans[i][1]:
+                inside += k.device_time
+        per[name] = {
+            "host_ms": sum(e.cpu_time_total for e in host) / 1e3 / length,
+            "device_ms": inside / 1e3 / length,
+            "device_ms_ops": sum(e.device_time_total for e in host)
+            / 1e3 / length,
+            "calls": len(host) / length}
+    busy = sum(e.device_time for e in kernels) / 1e3
+    by_name = {}
+    for k in kernels:
+        t, n = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (t + k.device_time, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(json.dumps({
+        "window": f"{args.path} {start}-{start + length - 1}", "card": card,
+        "profiled_ms_per_frame": win * 1e3 / length,
+        "device_busy_ms_per_frame": busy / length,
+        "device_idle_share": 1.0 - busy / (win * 1e3),
+        "kernel_launches_per_frame": len(kernels) / length,
+        "phases": per,
+        "top_kernels": [{"name": n[:80], "device_ms": t / 1e3 / length,
+                         "launches": c / length} for n, (t, c) in top]}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""rfs_slam_tpu_torch imports, and runs a step, in a process where JAX and
-the JAX package cannot be imported (the GPU machine has no JAX)."""
+"""rfs_slam_tpu_torch imports, and runs a 2-D simulation step and three
+synthetic Victoria Park frames, in a process where JAX and the JAX package
+cannot be imported (the GPU machine has no JAX)."""
 
 import os
 import subprocess
@@ -33,6 +34,19 @@ SCRIPT = textwrap.dedent("""
     _, best = app.run(filt, app.sim_inputs(data),
                       torch.Generator().manual_seed(0), cfg.dt)
     assert best.shape == (7, 3)
+
+    import tempfile
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
+    from rfs_slam_tpu_torch.io import victoria_park as vp_io, vp_synth
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
+    with tempfile.TemporaryDirectory() as d:
+        vp_synth.write(d, seed=0, n_frames=3, scans=True)
+        vfilt, icov, ack = vp_app.build(
+            XmlConfig(vp_synth.write_config(d + "/config.xml")),
+            map_capacity=32, n_particles=4)
+        frames = vp_io.load(d, z_capacity=24, ackerman=ack)
+    _, outs = vp_app.run(vfilt, icov, frames, torch.Generator().manual_seed(0))
+    assert outs["pose"].shape == (3, 4, 3)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "rfs_slam_tpu")]
     assert not bad, bad
@@ -46,4 +60,4 @@ def test_port_imports_and_steps_without_jax():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30

@@ -66,6 +66,25 @@ def step_draws(key, n_particles):
     return np.asarray(noise), np.asarray(u0)
 
 
+def predict_input_draws(key, n_particles):
+    """``(next key, input draws [P, 2])`` of one JAX predict with input
+    noise: predict splits ``key, k_prop, _``, each particle ``k_in, _`` of
+    ``split(k_prop, P)``, and the input is sampled with
+    ``normal(k_in, (2,))`` (models/motion.py:_maybe_sample_input)."""
+    key2, k_prop, _ = jax.random.split(key, 3)
+    draws = jax.vmap(lambda k: jax.random.normal(
+        jax.random.split(k)[0], (2,), jnp.float32))(
+            jax.random.split(k_prop, n_particles))
+    return key2, np.asarray(draws)
+
+
+def resample_offset(key):
+    """The resampling offset the JAX update's resample phase draws from the
+    particles' ``key``: ``uniform(split(key)[1])``."""
+    return np.asarray(jax.random.uniform(jax.random.split(key)[1], (),
+                                         jnp.float32))
+
+
 def assert_gm_close(port_gm, jax_gm_, rtol=1e-4, atol=1e-5):
     """Alive exact; floats on alive slots within tolerance."""
     a = np.asarray(jax_gm_.alive)
