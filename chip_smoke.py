@@ -8,9 +8,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each, all started together, and print each ptxas report;
 3. ``map_update2d``: kernel against its plain twin at the bench shape
    (P=200, M=128, Zc=40) on a mid-run state of the ``native/bl_dump``
-   replay, with that replay's measurements;
+   replay, with that replay's measurements, and on edge inputs cut from it
+   (a crowded map, T=1, negative weights, tied values, sparse columns and
+   an empty particle, M=100, Zc=1, M=300 and M=1024);
 4. ``merge2d``: kernel against its plain twin on random mixtures with
-   20-120 alive slots and on the same mid-run state;
+   20-120 alive slots, on the same mid-run state, and on edge mixtures
+   (gated chains across 32-slot words, every slot alive, N=100, a
+   particle with no alive slot), with the maximum absolute error of each;
 4b. ``merge3d``: kernel against its plain twin at Victoria Park's width
    (P=100, N=512) on random 3-D mixtures with 40-400 alive slots and on the
    merge input of the synthetic Victoria Park stream after 200 frames;
@@ -30,7 +34,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 Each kernel's ``ms`` beside its twin's ``plain_ms`` is the median device
 time of 25 calls at its path's shape (see :func:`cuda_ms`); ``bound_ms``
 is the least time the card could take for the same work on this run's
-inputs (see :func:`bound`).  Prints the kernel table, then the card, then
+inputs (see :func:`bound`), and ``floor_ms`` the same timing around a
+one-element ``zero_()``: what the event pair reads for the smallest
+launch.  Prints the kernel table, then the card, then
 the contract line ``{"ok": true, "device": {...}}`` last.  Usage:
 ``python3 chip_smoke.py [--gates]`` from the repository root.
 """
@@ -186,39 +192,88 @@ def midrun(torch, app, filt, gen, dt):
     return filt.predict(state, odo.float(), dt, gen=gen), z, z_mask
 
 
+def map_update_cases(torch, args):
+    """The mid-run inputs and the edge cases the kernel's design hinges on
+    (tests/test_torch_map_update.py's, at the path's width): every slot a
+    copy of an alive one (more than 64 slots in the table), columns with
+    more than T positive cells (T=1), negative weights (both take the
+    argmax rounds), tied values, columns with fewer than T positive cells
+    and a particle with no alive slot, M=100, Zc=1, and M=300 and M=1024
+    (tiled slots: the argmax from shared memory, and at 1024 the table in
+    two chunks)."""
+    pose, *slots, z, z_mask, params, T = args   # slots: 8 planes [P, M]
+    M = slots[0].shape[1]
+
+    def tiled(n):
+        return [torch.cat([x] * -(-n // M), dim=1)[:, :n].contiguous()
+                for x in slots]
+
+    sparse = slots[-1].clone()
+    sparse[:, 3:] = False
+    sparse[0] = False
+    negative = slots[6].clone()
+    negative[:, ::3] *= -1.0
+    # every slot a copy of an alive one: more than 64 slots in the table
+    n = int(slots[-1].sum(dim=1).min())
+    first = torch.argsort((~slots[-1]).int(), dim=1, stable=True)[:, :n]
+    crowd = first.repeat(1, -(-M // n))[:, :M]
+    k = int(torch.nonzero(z_mask)[0])
+    return [
+        ("mid-run", args),
+        ("crowded", (pose, *[torch.gather(x, 1, crowd) for x in slots], z,
+                     z_mask, params, T)),
+        ("T=1", (*args[:-1], 1)),
+        ("negative weights", (pose, *slots[:6], negative, *slots[7:], z,
+                              z_mask, params, T)),
+        ("ties", (pose, *[torch.cat([x[:, :M // 2]] * 2, dim=1)
+                          for x in slots], z, z_mask, params, T)),
+        ("sparse", (pose, *slots[:-1], sparse, z, z_mask, params, T)),
+        ("M=100", (pose, *tiled(100), z, z_mask, params, T)),
+        ("Zc=1", (pose, *slots, z[k:k + 1], z_mask[k:k + 1], params, T)),
+        ("M=300", (pose, *tiled(300), z, z_mask, params, T)),
+        ("M=1024", (pose, *tiled(1024), z, z_mask, params, T))]
+
+
 def check_map_update(torch, mu, filt, state, z, z_mask):
     gm, cfg = state.gm, filt.cfg
+    if not bool(gm.alive.any()):
+        raise AssertionError("map_update2d: the mid-run map is empty")
     params = mu.pack_params(filt.meas, filt.gates,
                             cfg.new_gaussian_md_threshold,
                             cfg.birth_gaussian_weight)
     args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
             gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
             params, cfg.new_per_z)
-    k = mu.fused_map_update2d(*args)
-    p = mu.map_update2d_plain(*args)
-    torch.cuda.synchronize()
-    if not bool(gm.alive.any()):
-        raise AssertionError("map_update2d: the mid-run map is empty")
-    errs = [close("pd", k.pd, p.pd, 1e-6, 1e-7),
-            close("col_sum", k.col_sum, p.col_sum, 5e-5, 1e-7),
-            close("w", k.w, p.w, 5e-5, 1e-7),
-            close("w_prev", k.w_prev, p.w_prev, 0, 0),
-            close("K", k.K, p.K, 1e-4, 1e-6),
-            close("cov_upd", k.cov_upd, p.cov_upd, 1e-4, 1e-6),
-            close("z_exp", k.z_exp, p.z_exp, 1e-5, 1e-6),
-            close("cand_w", k.cand_w, p.cand_w, 1e-5, 1e-8)]
-    np.testing.assert_array_equal(k.unused.cpu().numpy(),
-                                  p.unused.cpu().numpy(), err_msg="unused")
-    nz = (p.cand_w > 0).cpu().numpy()
-    np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
-                                  p.cand_m.cpu().numpy()[nz],
-                                  err_msg="cand_m")
-    print(f"map_update2d: kernel == twin on the mid-run state "
-          f"({int(gm.count().sum())} alive slots, {int(z_mask.sum())} "
-          f"measurements, {int(nz.sum())} candidates)", flush=True)
+    errs = []
+    for name, a in map_update_cases(torch, args):
+        k = mu.fused_map_update2d(*a)
+        p = mu.map_update2d_plain(*a)
+        torch.cuda.synchronize()
+        case = [close(f"pd ({name})", k.pd, p.pd, 1e-6, 1e-7),
+                close(f"col_sum ({name})", k.col_sum, p.col_sum, 5e-5, 1e-7),
+                close(f"w ({name})", k.w, p.w, 5e-5, 1e-7),
+                close(f"w_prev ({name})", k.w_prev, p.w_prev, 0, 0),
+                close(f"K ({name})", k.K, p.K, 1e-4, 1e-6),
+                close(f"cov_upd ({name})", k.cov_upd, p.cov_upd, 1e-4,
+                      1e-6),
+                close(f"z_exp ({name})", k.z_exp, p.z_exp, 1e-5, 1e-6),
+                close(f"cand_w ({name})", k.cand_w, p.cand_w, 1e-5, 1e-8)]
+        np.testing.assert_array_equal(k.unused.cpu().numpy(),
+                                      p.unused.cpu().numpy(),
+                                      err_msg=f"unused ({name})")
+        nz = (p.cand_w > 0).cpu().numpy()
+        np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
+                                      p.cand_m.cpu().numpy()[nz],
+                                      err_msg=f"cand_m ({name})")
+        errs += case
+        print(f"map_update2d: kernel == twin on {name} (M={a[1].shape[1]}, "
+              f"Zc={a[9].shape[0]}, {int(a[8].sum())} alive slots, "
+              f"{int(nz.sum())} candidates; max abs error {max(case):.3g})",
+              flush=True)
     return (max(errs), *kernel_vs_twin_ms(
         torch, "map_update2d", lambda: mu.fused_map_update2d(*args),
-        lambda: mu.map_update2d_plain(*args)), *map_update_bound(args, k))
+        lambda: mu.map_update2d_plain(*args)),
+        *map_update_bound(args, mu.fused_map_update2d(*args)))
 
 
 def random_mixtures(torch, GMState, rng, P, N, dev):
@@ -235,6 +290,32 @@ def random_mixtures(torch, GMState, rng, P, N, dev):
         w=t(w), w_prev=t(w * 0.5), alive=t(alive))
 
 
+def edge_mixtures(torch, GMState, rng, dev):
+    """The mixtures the kernel's gate bit mask hinges on
+    (tests/test_torch_gm.py's, at P=200): gated chains across 32-slot
+    words, every slot alive, N=100, a particle with no alive slot."""
+    P, N = 200, 128
+    mean = rng.uniform(-40, 40, size=(2, P, N)).astype(np.float32)
+    for s0 in (30, 62):
+        mean[0, :, s0:s0 + 5] = 0.25 * np.arange(5) + s0
+        mean[1, :, s0:s0 + 5] = 0.0
+    cov = np.zeros((3, P, N), np.float32)
+    cov[0] = cov[2] = 0.04
+    w = np.tile(np.linspace(1.0, 0.2, N, dtype=np.float32), (P, 1))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    chains = GMState(mean=t(mean), cov=t(cov), w=t(w), w_prev=t(w * 0.5),
+                     alive=t(np.arange(N)[None, :] < 100).expand(P, N)
+                     .contiguous())
+    full = random_mixtures(torch, GMState, rng, P, N, dev)
+    full = GMState(full.mean, full.cov, full.w, full.w_prev,
+                   torch.ones_like(full.alive))
+    empty = random_mixtures(torch, GMState, rng, P, N, dev)
+    empty.alive[1] = False
+    return [("word boundary", chains), ("all alive", full),
+            ("N=100", random_mixtures(torch, GMState, rng, P, 100, dev)),
+            ("empty particle", empty)]
+
+
 def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
     cfg = filt.cfg
     gm_full = filt._map_update(state, z, z_mask)[0]
@@ -244,6 +325,8 @@ def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
     for _ in range(2):
         cases.append(("random", random_mixtures(torch, GMState, rng, 200, 128,
                                                 dev), 1.5, 1.5))
+    cases += [(name, gm, 1.5, 1.5)
+              for name, gm in edge_mixtures(torch, GMState, rng, dev)]
     errs = []
     for name, gm, thr, infl in cases:
         k = mg.merge2d(gm, thr, infl)
@@ -253,13 +336,15 @@ def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
                                       p.alive.cpu().numpy(),
                                       err_msg=f"merge2d alive ({name})")
         a = p.alive.cpu().numpy()
-        errs += [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
-                 close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
-                 close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-5, a),
-                 close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
+        case = [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
+                close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
+                close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-5, a),
+                close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
+        errs += case
         print(f"merge2d: kernel == twin on {name} mixtures "
-              f"({int(gm.count().sum())} -> {int(p.count().sum())} alive)",
-              flush=True)
+              f"(N={gm.capacity}, {int(gm.count().sum())} -> "
+              f"{int(p.count().sum())} alive; max abs error "
+              f"{max(case):.3g})", flush=True)
     gm, thr, infl = cases[0][1:]
     return (max(errs), *kernel_vs_twin_ms(
         torch, "merge2d", lambda: mg.merge2d(gm, thr, infl),
@@ -400,6 +485,12 @@ def main(argv=None) -> int:
     dt = sim_cfg.dt
     filt = app.build_filter(sim_cfg, dev)
 
+    # the launch floor: the same event pair around the smallest launch
+    one = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(torch, one.zero_)
+    print(f"launch floor: device ms {floor_ms:.4f} (a one-element zero_)",
+          flush=True)
+
     # ---- 3-4. kernels against their twins
     gen = torch.Generator(device=dev).manual_seed(0)
     state, z, z_mask = midrun(torch, app, filt, gen, dt)
@@ -534,7 +625,7 @@ def main(argv=None) -> int:
             "replaces": f"rfs_slam_tpu/ops/pallas/{pallas}",
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "floor_ms": floor_ms, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

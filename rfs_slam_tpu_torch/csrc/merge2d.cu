@@ -8,200 +8,210 @@
 // and a moment-matched merge with covariance inflation
 // (GaussianMixture.hpp:394-475), then kills the absorbed slots.  Passes
 // repeat until one merges nothing or max_passes have run; the first always
-// runs.  The arithmetic follows the plain twin, ops/gm.py:_merge_pass.
+// runs.  The arithmetic follows the plain twin, ops/gm.py:_merge_pass, term
+// for term, and the kernel is built with -fmad=false (ops/kernels/build.py)
+// so that no product is fused into a sum: the gate decides boundary pairs
+// as the twin decides them.
 //
 // What bounds it on the card: the data is 8 planes x P x N x 4 B (0.8 MB at
-// P=200, N=128) and each pass is O(n_alive x N) gate tests per particle, a
-// few MFLOP in all.  The kernel is latency-bound: a handful of barriers
-// per pass, and the serial scan for each slot's lowest gated partner.
+// P=200, N=128) and each pass is O(n_alive^2) gate tests per particle, a
+// few MFLOP in all.  Latency bounds it: a few barriers per pass and, inside
+// each phase, the dependent instruction chain of the busiest warp.  The
+// first port ran one thread per slot, and each thread scanned the slots
+// below it one gate at a time for its lowest partner (up to hi dependent
+// gate evaluations), then a second time for its lowest safe partner.
 //
-// Design: one CTA per particle, one thread per slot.  The slot fields live
-// in shared memory (8 planes x N x 4 B = 4 KB at N=128) for the whole
-// fixpoint, and the pass loop runs inside the kernel with
-// __syncthreads_or as the "any merged" test, so there is no host sync per
-// pass.  A slot's partner is gathered by an indexed shared-memory load (the
-// TPU kernel used a selection-matrix matmul).  The i-axis of the pair
-// search is bounded per CTA by one past its highest alive slot: slots only
-// die during the fixpoint, so every alive slot stays below that bound for
-// every pass, and the bound is exact (after compact it equals the alive
-// count).  This replaces the TPU's static absorber tiers and their
+// Design: one CTA per particle with 16 warps (32 at N > 512), one thread
+// per slot for the slot-wise phases.  The slot fields live in shared memory
+// for the whole fixpoint, the gate fields of a slot as one float4 and a
+// float, and the pass loop runs inside the kernel with __syncthreads_or as
+// the "any merged" test, so there is no host sync per pass.  The pair
+// search is the gate bit mask of merge_bitmask.cuh: a warp evaluates the
+// 32 gates of a row word per ballot, two rows at a time, each gate once a
+// pass, and a slot finds its absorber in ceil(j / 32) word tests.  The mask is
+// N x ceil(N / 32) words (2 KB at N=128, 128 KB at N=1024).  A pass has
+// three barriers: after the gate rows, after the claims, and the "any
+// merged" test; each absorber reads its partner and writes its own fields
+// and its new S^-1 in one phase (absorbers are safe, so unclaimed, and
+// absorbed slots absorb nothing).  The i-axis of the pair search is bounded
+// per CTA by one past its highest alive slot: slots only die during the
+// fixpoint, so the bound holds for every pass, and after compact it equals
+// the alive count.  This replaces the TPU's static absorber tiers and their
 // host-side choice.  Running each particle to its own fixpoint equals the
 // JAX loop over all particles: a pass that merges nothing changes nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_bitmask.cuh"
+
 namespace {
 
-__global__ void merge2d_kernel(
+constexpr int kMaxThreads = 1024;
+
+// two-way gate for the pair k < j, both alive (GaussianMixture.hpp:430-441).
+// A slot's gate fields are one float4 (x, y, S^-1_00, 2 S^-1_01) and
+// S^-1_11: 2 S^-1_01 is exact, and 2 * a01 * dx * dy multiplies left to
+// right, so the sums round as the twin's quad_sym.
+struct Gate2 {
+  const float4* g;
+  const float* i11;
+  float t2;
+  struct Fields {
+    float4 g;
+    float a11;
+  };
+  __device__ Fields fields(int s) const { return {g[s], i11[s]}; }
+  __device__ bool test(const Fields& k, const Fields& j) const {
+    const float dx = j.g.x - k.g.x;
+    const float dy = j.g.y - k.g.y;
+    const float d2_kj = k.g.z * dx * dx + k.g.w * dx * dy + k.a11 * dy * dy;
+    const float d2_jk = j.g.z * dx * dx + j.g.w * dx * dy + j.a11 * dy * dy;
+    return d2_kj <= t2 || d2_jk <= t2;
+  }
+};
+
+// S^-1 of the packed covariance (c00, c01, c11) into the gate fields, as
+// the twin's inv_sym rounds it
+__device__ __forceinline__ void invert(float c00, float c01, float c11,
+                                       float4& g, float& i11) {
+  const float det = c00 * c11 - c01 * c01;
+  g.z = c11 / det;
+  g.w = 2.0f * (-c01 / det);
+  i11 = c00 / det;
+}
+
+// inputs: mean [2, P, N], cov [3, P, N], w, w_prev [P, N]; out: one float
+// buffer of 7 planes [P, N] (mean x/y, cov 00/01/11, w, w_prev)
+__global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
     float t2, float infl, int max_passes, int N,
-    const float* __restrict__ mx_in, const float* __restrict__ my_in,
-    const float* __restrict__ p00_in, const float* __restrict__ p01_in,
-    const float* __restrict__ p11_in, const float* __restrict__ w_in,
-    const float* __restrict__ wp_in, const bool* __restrict__ alive_in,
-    float* __restrict__ mx_out, float* __restrict__ my_out,
-    float* __restrict__ p00_out, float* __restrict__ p01_out,
-    float* __restrict__ p11_out, float* __restrict__ w_out,
-    float* __restrict__ wp_out, bool* __restrict__ alive_out) {
-  extern __shared__ float smem[];
-  float* s_mx = smem;
-  float* s_my = s_mx + N;
-  float* s_p00 = s_my + N;
+    const float* __restrict__ mean, const float* __restrict__ cov,
+    const float* __restrict__ w_in, const float* __restrict__ wp_in,
+    const bool* __restrict__ alive_in, float* __restrict__ out,
+    bool* __restrict__ alive_out) {
+  // shared memory (the wrapper's launch_plan sizes it the same way)
+  const int W = merge_bitmask::words(N);
+  extern __shared__ float4 smem[];
+  float4* s_g = smem;                 // gate fields (x, y, S^-1_00, 2 S^-1_01)
+  float* s_i11 = reinterpret_cast<float*>(s_g + N);
+  float* s_p00 = s_i11 + N;
   float* s_p01 = s_p00 + N;
   float* s_p11 = s_p01 + N;
   float* s_w = s_p11 + N;
   float* s_wp = s_w + N;
-  float* s_i00 = s_wp + N;
-  float* s_i01 = s_i00 + N;
-  float* s_i11 = s_i01 + N;
-  int* s_alive = reinterpret_cast<int*>(s_i11 + N);
-  int* s_first_any = s_alive + N;
-  int* s_jstar = s_first_any + N;
+  int* s_alive = reinterpret_cast<int*>(s_wp + N);
+  int* s_jstar = s_alive + N;
+  unsigned* s_gate = reinterpret_cast<unsigned*>(s_jstar + N);  // [N, W]
+  unsigned* s_safe = s_gate + static_cast<size_t>(N) * W;       // [W]
   __shared__ int s_hi;
 
+  const size_t PN = static_cast<size_t>(gridDim.x) * N;
   const int i = threadIdx.x;
   const bool act = i < N;
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
+  const size_t pi = static_cast<size_t>(blockIdx.x) * N + i;
 
   if (i == 0) s_hi = 0;
   if (act) {
-    s_mx[i] = mx_in[base + i];
-    s_my[i] = my_in[base + i];
-    s_p00[i] = p00_in[base + i];
-    s_p01[i] = p01_in[base + i];
-    s_p11[i] = p11_in[base + i];
-    s_w[i] = w_in[base + i];
-    s_wp[i] = wp_in[base + i];
-    s_alive[i] = alive_in[base + i] ? 1 : 0;
+    s_g[i].x = mean[pi];
+    s_g[i].y = mean[PN + pi];
+    s_p00[i] = cov[pi];
+    s_p01[i] = cov[PN + pi];
+    s_p11[i] = cov[2 * PN + pi];
+    s_w[i] = w_in[pi];
+    s_wp[i] = wp_in[pi];
+    s_alive[i] = alive_in[pi] ? 1 : 0;
   }
   __syncthreads();
   if (act && s_alive[i]) atomicMax(&s_hi, i + 1);
   __syncthreads();
   const int hi = s_hi;
+  const Gate2 gate{s_g, s_i11, t2};
 
-  // two-way gate for the pair k < j, both alive (GaussianMixture.hpp:430-441)
-  auto gate = [&](int k, int j) {
-    if (!s_alive[k]) return false;
-    const float dx = s_mx[j] - s_mx[k];
-    const float dy = s_my[j] - s_my[k];
-    const float d2_kj = s_i00[k] * dx * dx + 2.0f * s_i01[k] * dx * dy +
-                        s_i11[k] * dy * dy;
-    const float d2_jk = s_i00[j] * dx * dx + 2.0f * s_i01[j] * dx * dy +
-                        s_i11[j] * dy * dy;
-    return d2_kj <= t2 || d2_jk <= t2;
-  };
+  // S^-1: once here, then again only where a merge changed S
+  if (act) {
+    invert(s_p00[i], s_p01[i], s_p11[i], s_g[i], s_i11[i]);
+    s_jstar[i] = N;
+  }
+  merge_bitmask::clear_safe(s_safe, W);
+  __syncthreads();
 
   for (int pass = 0; pass < max_passes; ++pass) {
-    if (act) {
-      const float det = s_p00[i] * s_p11[i] - s_p01[i] * s_p01[i];
-      s_i00[i] = s_p11[i] / det;
-      s_i01[i] = -s_p01[i] / det;
-      s_i11[i] = s_p00[i] / det;
-      s_jstar[i] = N;
-    }
+    merge_bitmask::gate_rows(gate, s_alive, hi, W, s_gate, s_safe);
+    __syncthreads();
+    merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
     __syncthreads();
 
-    // lowest gated partner below this slot: a slot that has one cannot
-    // absorb this pass (safe-absorber rule)
-    const bool alive_i = act && s_alive[i];
-    const int k_end = min(i, hi);
-    int first_any = N;
-    if (alive_i) {
-      for (int k = 0; k < k_end; ++k) {
-        if (gate(k, i)) { first_any = k; break; }
-      }
-    }
-    if (act) s_first_any[i] = first_any;
-    __syncthreads();
-
-    // the lowest safe absorber claims this slot; each absorber keeps its
-    // lowest claimed slot
-    if (first_any < N) {
-      for (int k = first_any; k < k_end; ++k) {
-        if (s_first_any[k] == N && gate(k, i)) {
-          atomicMin(&s_jstar[k], i);
-          break;
-        }
-      }
-    }
-    __syncthreads();
-
+    // An absorber is safe, so no slot claims it, and an absorbed slot
+    // absorbs nothing: each absorber alone reads its fields and its
+    // partner's, and writes its own, so reads and writes need no barrier.
     const int js = act ? s_jstar[i] : N;
     bool ok = false;
-    float nmx = 0.f, nmy = 0.f, n00 = 0.f, n01 = 0.f, n11 = 0.f, nw = 0.f;
     if (js < N) {
       const float w1 = s_w[i], w2 = s_w[js];
       const float wm = w1 + w2;
       ok = wm != 0.f;
       const float w1n = w1 / wm, w2n = w2 / wm;
-      const float x1 = s_mx[i], y1 = s_my[i];
-      const float x2 = s_mx[js], y2 = s_my[js];
-      nmx = x1 * w1n + x2 * w2n;
-      nmy = y1 * w1n + y2 * w2n;
+      const float x1 = s_g[i].x, y1 = s_g[i].y;
+      const float x2 = s_g[js].x, y2 = s_g[js].y;
+      const float nmx = x1 * w1n + x2 * w2n;
+      const float nmy = y1 * w1n + y2 * w2n;
       const float d1x = nmx - x1, d1y = nmy - y1;
       const float d2x = nmx - x2, d2y = nmy - y2;
-      n00 = w1n * (s_p00[i] + infl * d1x * d1x) +
-            w2n * (s_p00[js] + infl * d2x * d2x);
-      n01 = w1n * (s_p01[i] + infl * d1x * d1y) +
-            w2n * (s_p01[js] + infl * d2x * d2y);
-      n11 = w1n * (s_p11[i] + infl * d1y * d1y) +
-            w2n * (s_p11[js] + infl * d2y * d2y);
-      nw = wm;
+      const float n00 = w1n * (s_p00[i] + infl * d1x * d1x) +
+                        w2n * (s_p00[js] + infl * d2x * d2x);
+      const float n01 = w1n * (s_p01[i] + infl * d1x * d1y) +
+                        w2n * (s_p01[js] + infl * d2x * d2y);
+      const float n11 = w1n * (s_p11[i] + infl * d1y * d1y) +
+                        w2n * (s_p11[js] + infl * d2y * d2y);
+      if (ok) {
+        s_g[i].x = nmx;
+        s_g[i].y = nmy;
+        s_p00[i] = n00;
+        s_p01[i] = n01;
+        s_p11[i] = n11;
+        s_w[i] = wm;
+        s_wp[i] = 0.f;
+        s_alive[js] = 0;
+        invert(n00, n01, n11, s_g[i], s_i11[i]);
+      }
     }
-    __syncthreads();  // every partner read is done before any write
-    if (ok) {
-      s_mx[i] = nmx;
-      s_my[i] = nmy;
-      s_p00[i] = n00;
-      s_p01[i] = n01;
-      s_p11[i] = n11;
-      s_w[i] = nw;
-      s_wp[i] = 0.f;
-      s_alive[js] = 0;
-    }
+    if (act) s_jstar[i] = N;
+    merge_bitmask::clear_safe(s_safe, W);
     if (!__syncthreads_or(ok)) break;
   }
 
   if (act) {
-    mx_out[base + i] = s_mx[i];
-    my_out[base + i] = s_my[i];
-    p00_out[base + i] = s_p00[i];
-    p01_out[base + i] = s_p01[i];
-    p11_out[base + i] = s_p11[i];
-    w_out[base + i] = s_w[i];
-    wp_out[base + i] = s_wp[i];
-    alive_out[base + i] = s_alive[i] != 0;
+    out[pi] = s_g[i].x;
+    out[PN + pi] = s_g[i].y;
+    out[2 * PN + pi] = s_p00[i];
+    out[3 * PN + pi] = s_p01[i];
+    out[4 * PN + pi] = s_p11[i];
+    out[5 * PN + pi] = s_w[i];
+    out[6 * PN + pi] = s_wp[i];
+    alive_out[pi] = s_alive[i] != 0;
   }
 }
 
 }  // namespace
 
-extern "C" int merge2d_launch(int P, int N, float t2, float infl,
-                              int max_passes, const void* mx, const void* my,
-                              const void* p00, const void* p01,
-                              const void* p11, const void* w, const void* wp,
-                              const void* alive, void* mx_out, void* my_out,
-                              void* p00_out, void* p01_out, void* p11_out,
-                              void* w_out, void* wp_out, void* alive_out,
+// threads (a multiple of 32, at least N) and smem come from the wrapper's
+// launch_plan
+extern "C" int merge2d_launch(int P, int N, int threads, int smem, float t2,
+                              float infl, int max_passes, const void* mean,
+                              const void* cov, const void* w, const void* wp,
+                              const void* alive, void* out, void* alive_out,
                               void* stream) {
-  const int threads = (N + 31) / 32 * 32;
-  const size_t smem = static_cast<size_t>(N) * (10 * sizeof(float) +
-                                                3 * sizeof(int));
+  if (threads < N || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        merge2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        merge2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   merge2d_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      t2, infl, max_passes, N, static_cast<const float*>(mx),
-      static_cast<const float*>(my), static_cast<const float*>(p00),
-      static_cast<const float*>(p01), static_cast<const float*>(p11),
-      static_cast<const float*>(w), static_cast<const float*>(wp),
-      static_cast<const bool*>(alive), static_cast<float*>(mx_out),
-      static_cast<float*>(my_out), static_cast<float*>(p00_out),
-      static_cast<float*>(p01_out), static_cast<float*>(p11_out),
-      static_cast<float*>(w_out), static_cast<float*>(wp_out),
-      static_cast<bool*>(alive_out));
+      t2, infl, max_passes, N, static_cast<const float*>(mean),
+      static_cast<const float*>(cov), static_cast<const float*>(w),
+      static_cast<const float*>(wp), static_cast<const bool*>(alive),
+      static_cast<float*>(out), static_cast<bool*>(alive_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,9 +27,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-kernel flags: merge3d rounds every product and sum as its twin does,
-# so its gate decides boundary pairs as the twin decides them
-EXTRA_FLAGS = {"merge3d": ["-fmad=false"]}
+# per-kernel flags: the merge kernels round every product and sum as their
+# twin does, so their gates decide boundary pairs as the twin decides them
+EXTRA_FLAGS = {"merge2d": ["-fmad=false"], "merge3d": ["-fmad=false"]}
+
+# the dynamic shared memory a Hopper block can opt into (227 KB)
+MAX_SMEM = 232_448
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas report) of the builds made by this process
@@ -59,18 +62,23 @@ def stream_of(t) -> int:
 
 
 def _target(name: str):
-    """(source, library path, nvcc flags) of kernel ``name``."""
+    """(source, library path, nvcc flags) of kernel ``name``.  The library
+    name hashes the source, the shared headers and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha1(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
     return src, out, flags
 
 
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    return load_all([name])[0]
+    lib = _LIBS.get(name)
+    return lib if lib is not None else load_all([name])[0]
 
 
 def load_all(names) -> list[ctypes.CDLL]:

@@ -4,7 +4,8 @@ and its plain PyTorch twin.
 Port of the JAX package's Pallas kernel ``ops/pallas/map_update2d.py``.  The
 kernel (``csrc/map_update2d.cu``) computes the whole map-update head per
 particle in one CTA and emits only plane-sized results; the ``[Zc, M]``
-weight table stays in shared memory.  The exact top-k over the ``Zc * T``
+weight table stays in shared memory (in chunks of columns at large M; see
+:func:`launch_plan`).  The exact top-k over the ``Zc * T``
 survivors, the ``m + K nu`` reconstruction and ``replace_weakest`` stay in
 plain PyTorch (``filters/rbphd.py``), as they stay in XLA in the JAX
 package.
@@ -16,6 +17,7 @@ package.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -26,7 +28,10 @@ from rfs_slam_tpu_torch.ops.ekf import InnovationGates, correct_all
 from rfs_slam_tpu_torch.ops.kernels import build
 
 N_PARAMS = 12
-MAX_SLOTS = 1024  # one thread per landmark slot
+MAX_SLOTS = 1024
+MAX_THREADS = 512    # 16 warps: two CTAs an SM (the kernel's launch bounds)
+SLOT_PLANES = 10     # per-slot words the kernel keeps in shared memory
+TABLE_BYTES = 96 * 1024  # the weight-table chunk's shared memory
 
 # kernel launches made by fused_map_update2d (the twin does not count)
 launches = 0
@@ -111,14 +116,50 @@ def map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
     )
 
 
+class LaunchPlan(NamedTuple):
+    threads: int   # a multiple of 32, at most MAX_THREADS
+    smem: int      # dynamic shared memory bytes
+    zb: int        # table columns held in shared memory at a time
+
+
+def launch_plan(P: int, M: int, Zc: int, T: int) -> LaunchPlan:
+    """The kernel's launch configuration, one CTA per particle.
+
+    Shared memory holds z and its mask (3 words a measurement), the
+    ``SLOT_PLANES`` per-slot planes, a bit word per 32 slots and a chunk of
+    ``zb`` table columns (all ``Zc`` at bench shape; fewer at large M, so
+    that the chunk stays within ``TABLE_BYTES``), as
+    ``csrc/map_update2d.cu`` lays it out.  One warp per slot word or per
+    column of the chunk, at most 16.  Raises ``ValueError`` for a shape the
+    kernel does not take.
+    """
+    if P < 1 or not 1 <= M <= MAX_SLOTS or Zc < 0 or T < 0:
+        raise ValueError(f"map_update2d: no launch for P={P}, M={M}, "
+                         f"Zc={Zc}, T={T} (1 <= M <= {MAX_SLOTS})")
+    zb = max(1, min(Zc, TABLE_BYTES // (4 * M)))
+    warps = min(MAX_THREADS // 32, max(-(-M // 32), zb))
+    smem = 4 * (3 * Zc + SLOT_PLANES * M + -(-M // 32) + zb * M)
+    if smem > build.MAX_SMEM:
+        raise ValueError(f"map_update2d: Zc={Zc} needs {smem} B of shared "
+                         f"memory, more than {build.MAX_SMEM}")
+    return LaunchPlan(32 * warps, smem, zb)
+
+
 def _lib():
     lib = build.load("map_update2d")
     if lib.map_update2d_launch.argtypes is None:
         lib.map_update2d_launch.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_float)]
-            + [ctypes.c_void_p] * 28)
+            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_float)]
+            + [ctypes.c_void_p] * 15)
         lib.map_update2d_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _c_params(params: tuple):
+    """The 12 scalars as the C array the launch takes, built once per
+    params tuple (the filter packs its tuple once)."""
+    return (ctypes.c_float * N_PARAMS)(*params)
 
 
 def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
@@ -136,8 +177,7 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
     P, M = w.shape
     Zc = z.shape[0]
     T = new_per_z
-    if M > MAX_SLOTS:
-        raise ValueError(f"map_update2d: M={M} > {MAX_SLOTS} slots")
+    plan = launch_plan(P, M, Zc, T)
     if len(params) != N_PARAMS:
         raise ValueError(f"map_update2d: {len(params)} params, "
                          f"need {N_PARAMS}")
@@ -147,30 +187,26 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
                                (w, (P, M)), (w_prev, (P, M)), (z, (Zc, 2)))]
     alive = build.checked(alive, torch.bool, pose.device, (P, M))
     z_mask = build.checked(z_mask, torch.bool, pose.device, (Zc,))
-    pose, mx, my, c00, c01, c11, w, w_prev, z = floats
 
-    dev, f32 = pose.device, torch.float32
-    w_o = torch.empty((P, M), dtype=f32, device=dev)
-    wp_o = torch.empty_like(w_o)
-    pd_o = torch.empty_like(w_o)
-    cs_o = torch.empty((P, Zc), dtype=f32, device=dev)
+    # the float outputs in one buffer, laid out as the kernel writes them:
+    # 12 planes [P, M], col_sum [P, Zc], cand_w [P, T * Zc]
+    dev, n = pose.device, P * M
+    out = torch.empty(12 * n + P * Zc * (1 + T), dtype=torch.float32,
+                      device=dev)
+    planes = out[:12 * n].view(12, P, M)
+    cs_o = out[12 * n:12 * n + P * Zc].view(P, Zc)
+    cw_o = out[12 * n + P * Zc:].view(P, T * Zc)
     un_o = torch.empty((P, Zc), dtype=torch.bool, device=dev)
-    cw_o = torch.empty((P, T * Zc), dtype=f32, device=dev)
     cm_o = torch.empty((P, T * Zc), dtype=torch.int64, device=dev)
-    K = torch.empty((4, P, M), dtype=f32, device=dev)
-    cu = torch.empty((3, P, M), dtype=f32, device=dev)
-    ze = torch.empty((2, P, M), dtype=f32, device=dev)
-    prm = (ctypes.c_float * N_PARAMS)(*params)
     err = _lib().map_update2d_launch(
-        P, M, Zc, T, prm,
-        *(t.data_ptr() for t in (pose, mx, my, c00, c01, c11, w, w_prev,
-                                 alive, z, z_mask, w_o, wp_o, pd_o, cs_o,
-                                 un_o, cw_o, cm_o, K[0], K[1], K[2], K[3],
-                                 cu[0], cu[1], cu[2], ze[0], ze[1])),
+        P, M, Zc, T, *plan, _c_params(tuple(params)),
+        *(t.data_ptr() for t in (*floats[:8], alive, floats[8], z_mask, out,
+                                 un_o, cm_o)),
         build.stream_of(pose))
     if err != 0:
         raise RuntimeError(f"map_update2d launch failed: CUDA error {err}")
     launches += 1
-    return FusedMapUpdate(w=w_o, w_prev=wp_o, pd=pd_o, col_sum=cs_o,
-                          unused=un_o, cand_w=cw_o, cand_m=cm_o, K=K,
-                          cov_upd=cu, z_exp=ze)
+    return FusedMapUpdate(w=planes[0], w_prev=planes[1], pd=planes[2],
+                          col_sum=cs_o, unused=un_o, cand_w=cw_o,
+                          cand_m=cm_o, K=planes[3:7], cov_upd=planes[7:10],
+                          z_exp=planes[10:12])

@@ -12,6 +12,7 @@ CPU tensors; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +21,7 @@ from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops.kernels import build
 
 MAX_SLOTS = 1024  # one thread per slot
+MIN_THREADS = 512  # 16 warps for the gate rows, two CTAs an SM
 
 # kernel launches made by merge2d (the twin does not count)
 launches = 0
@@ -31,12 +33,33 @@ def merge2d_plain(gm: GMState, threshold, f_inflation,
     return gm_ops.merge_fixpoint(gm, threshold, f_inflation, max_passes)
 
 
+class LaunchPlan(NamedTuple):
+    threads: int   # a multiple of 32, at least N
+    smem: int      # dynamic shared memory bytes
+
+
+def launch_plan(P: int, N: int) -> LaunchPlan:
+    """The kernel's launch configuration, one CTA per particle: one thread
+    per slot and at least 16 warps for the gate rows.  Shared memory holds
+    12 slot planes, the gate bit mask (N rows of ceil(N / 32) words) and
+    the safe-absorber words, as ``csrc/merge2d.cu`` lays it out.  Raises
+    ``ValueError`` for a shape the kernel does not take."""
+    if P < 1 or not 1 <= N <= MAX_SLOTS:
+        raise ValueError(f"merge2d: no launch for P={P}, N={N} "
+                         f"(1 <= N <= {MAX_SLOTS})")
+    words = -(-N // 32)
+    smem = 4 * (12 * N + N * words + words)
+    if smem > build.MAX_SMEM:
+        raise ValueError(f"merge2d: N={N} needs {smem} B of shared memory")
+    return LaunchPlan(max(MIN_THREADS, 32 * words), smem)
+
+
 def _lib():
     lib = build.load("merge2d")
     if lib.merge2d_launch.argtypes is None:
         lib.merge2d_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int] + [ctypes.c_void_p] * 17)
+            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 8)
         lib.merge2d_launch.restype = ctypes.c_int
     return lib
 
@@ -52,26 +75,23 @@ def merge2d(gm: GMState, threshold, f_inflation,
         return merge2d_plain(gm, threshold, f_inflation, max_passes)
     global launches
     P, N = gm.w.shape
-    if N > MAX_SLOTS:
-        raise ValueError(f"merge2d: N={N} > {MAX_SLOTS} slots")
+    plan = launch_plan(P, N)
     dev = gm.w.device
     mean = build.checked(gm.mean, torch.float32, dev, (2, P, N))
     cov = build.checked(gm.cov, torch.float32, dev, (3, P, N))
     w = build.checked(gm.w, torch.float32, dev, (P, N))
     wp = build.checked(gm.w_prev, torch.float32, dev, (P, N))
     alive = build.checked(gm.alive, torch.bool, dev, (P, N))
-    out = GMState(mean=torch.empty_like(mean), cov=torch.empty_like(cov),
-                  w=torch.empty_like(w), w_prev=torch.empty_like(wp),
-                  alive=torch.empty_like(alive))
+    # the float outputs in one buffer: mean x/y, cov 00/01/11, w, w_prev
+    out = torch.empty((7, P, N), dtype=torch.float32, device=dev)
+    alive_o = torch.empty_like(alive)
     err = _lib().merge2d_launch(
-        P, N, float(threshold) * float(threshold), float(f_inflation),
+        P, N, *plan, float(threshold) * float(threshold), float(f_inflation),
         int(max_passes),
-        *(t.data_ptr() for t in (mean[0], mean[1], cov[0], cov[1], cov[2],
-                                 w, wp, alive, out.mean[0], out.mean[1],
-                                 out.cov[0], out.cov[1], out.cov[2], out.w,
-                                 out.w_prev, out.alive)),
+        *(t.data_ptr() for t in (mean, cov, w, wp, alive, out, alive_o)),
         build.stream_of(w))
     if err != 0:
         raise RuntimeError(f"merge2d launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return GMState(mean=out[0:2], cov=out[2:5], w=out[5], w_prev=out[6],
+                   alive=alive_o)

@@ -13,8 +13,8 @@ prune, resample; ``update`` spans the last five).  On the replay the births
 run inside ``predict``, so its range includes theirs.  Prints the card's
 name and power limit, one JSON line for the whole run and one for the
 window: host and device ms per frame for each phase, the device's busy time
-and idle share, kernel launches per frame, and the kernels that take the
-most device time.
+and idle share, kernel launches per frame, the kernels that take the most
+device time, and the device time of the port's own CUDA kernels.
 
 Usage, from the repository root on a machine with the card::
 
@@ -221,6 +221,13 @@ def main():
         t, n = by_name.get(k.name, (0.0, 0))
         by_name[k.name] = (t + k.device_time, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # the port's own kernels (csrc/*.cu), by the name in their symbol
+    ours = {}
+    for n, (t, c) in by_name.items():
+        for kernel in ("map_update2d", "merge2d", "merge3d"):
+            if f"{kernel}_kernel" in n:
+                t0, c0 = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (t0 + t, c0 + c)
     print(json.dumps({
         "window": f"{args.path} {start}-{start + length - 1}", "card": card,
         "profiled_ms_per_frame": win * 1e3 / length,
@@ -229,7 +236,10 @@ def main():
         "kernel_launches_per_frame": len(kernels) / length,
         "phases": per,
         "top_kernels": [{"name": n[:80], "device_ms": t / 1e3 / length,
-                         "launches": c / length} for n, (t, c) in top]}),
+                         "launches": c / length} for n, (t, c) in top],
+        "port_kernels": {k: {"device_ms": t / 1e3 / length,
+                             "launches": c / length}
+                         for k, (t, c) in ours.items()}}),
         flush=True)
 
 

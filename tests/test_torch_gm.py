@@ -35,15 +35,16 @@ def port_gm(d):
     return GMState(**{k: t(v) for k, v in d.items()})
 
 
-@pytest.mark.parametrize("n_alive", [20, 90])
-def test_merge_twin_matches_jax_merge_and_pallas(rng, n_alive):
-    """The twin against gm.merge (pure JAX) and merge2d (Pallas, interpret
-    mode), with the float tolerances of tests/test_pallas_merge.py."""
-    d = random_gm_np(rng, n_alive=n_alive)
-    ref = jgm.merge(jax_gm(d), threshold=1.5, f_inflation=1.5)
-    pal = jmerge2d(jgm.compact(jax_gm(d), 128), 1.5, 1.5, interpret=True)
+def assert_merge_matches_jax(d, threshold=1.5, f_inflation=1.5):
+    """gm.merge on the port (the twin, CPU tensors) against gm.merge (pure
+    JAX) and merge2d (Pallas, interpret mode) on the same numpy inputs,
+    with the float tolerances of tests/test_pallas_merge.py."""
+    N = d["w"].shape[1]
+    ref = jgm.merge(jax_gm(d), threshold=threshold, f_inflation=f_inflation)
+    pal = jmerge2d(jgm.compact(jax_gm(d), N), threshold, f_inflation,
+                   interpret=True)
     launches = merge2d_mod.launches
-    out = gm_ops.merge(port_gm(d), 1.5, 1.5)
+    out = gm_ops.merge(port_gm(d), threshold, f_inflation)
     assert merge2d_mod.launches == launches   # CPU tensors: the twin ran
     for want in (ref, pal):
         a = np.asarray(want.alive)
@@ -58,7 +59,74 @@ def test_merge_twin_matches_jax_merge_and_pallas(rng, n_alive):
                                    rtol=1e-3, atol=1e-5)
         np.testing.assert_allclose(out.w_prev.numpy()[a],
                                    np.asarray(want.w_prev)[a], rtol=1e-5)
+    return out
+
+
+@pytest.mark.parametrize("n_alive", [20, 90])
+def test_merge_twin_matches_jax_merge_and_pallas(rng, n_alive):
+    """The twin against gm.merge (pure JAX) and merge2d (Pallas, interpret
+    mode), with the float tolerances of tests/test_pallas_merge.py."""
+    out = assert_merge_matches_jax(random_gm_np(rng, n_alive=n_alive))
     assert out.alive.sum() < n_alive * 4       # merges happened
+
+
+def edge_gm_np(rng, case):
+    """The mixtures the CUDA kernel's gate bit mask hinges on."""
+    if case == "word boundary":
+        # far-apart slots, and two gated chains (0.25 apart: neighbours in
+        # the gate, slots two apart not) across 32-slot word boundaries;
+        # descending weights keep the slot order through compact
+        d = random_gm_np(rng, P=2, N=128, n_alive=100, spread=40.0)
+        d["cov"] = np.stack([np.full((2, 128), 0.04, np.float32),
+                             np.zeros((2, 128), np.float32),
+                             np.full((2, 128), 0.04, np.float32)])
+        d["w"] = np.tile(np.linspace(1.0, 0.2, 128, dtype=np.float32), (2, 1))
+        d["w_prev"] = d["w"] * 0.5
+        for s0 in (30, 62):
+            d["mean"][0, :, s0:s0 + 5] = 0.25 * np.arange(5) + s0
+            d["mean"][1, :, s0:s0 + 5] = 0.0
+        return d
+    if case == "all alive":
+        return random_gm_np(rng, N=128, n_alive=128)
+    if case == "N=100":
+        return random_gm_np(rng, N=100, n_alive=70)
+    d = random_gm_np(rng, n_alive=60)          # "empty particle"
+    d["alive"][1] = False
+    return d
+
+
+@pytest.mark.parametrize("case", ["word boundary", "all alive", "N=100",
+                                  "empty particle"])
+def test_merge_twin_matches_jax_edges(rng, case):
+    """Gated chains across 32-slot words (slots 30-34 and 62-66), every
+    slot alive (the alive bound is N), N not a multiple of 32, and a
+    particle with no alive slot."""
+    d = edge_gm_np(rng, case)
+    out = assert_merge_matches_jax(d)
+    if case == "word boundary":
+        # over three passes each chain of five ends as two slots
+        for s0 in (30, 62):
+            assert out.alive[:, s0:s0 + 5].sum(dim=1).tolist() == [2, 2]
+    if case == "empty particle":
+        assert not out.alive[1].any()
+    assert out.alive.sum() < d["alive"].sum()  # merges happened
+
+
+def test_launch_plan_fits_every_size():
+    """Every N up to MAX_SLOTS launches within Hopper's limits, with one
+    thread per slot."""
+    for N in range(1, merge2d_mod.MAX_SLOTS + 1):
+        threads, smem = merge2d_mod.launch_plan(200, N)
+        assert threads % 32 == 0 and N <= threads <= 1024
+        assert smem <= 232_448
+    assert merge2d_mod.launch_plan(200, 128) == (512, 4 * (12 * 128 + 128 * 4
+                                                           + 4))
+
+
+@pytest.mark.parametrize("P,N", [(200, 1025), (200, 0), (0, 128)])
+def test_launch_plan_rejects(P, N):
+    with pytest.raises(ValueError):
+        merge2d_mod.launch_plan(P, N)
 
 
 @pytest.mark.parametrize("n_alive", [17, 40, 77])

@@ -62,18 +62,15 @@ def test_pack_params_matches_jax(midrun):
                                 cfg.birth_gaussian_weight)))
 
 
-def test_twin_matches_pallas_kernel(midrun):
-    jfilt, filt, state, z, z_mask = midrun
-    cfg = filt.cfg
-    params = mu.pack_params(filt.meas, filt.gates,
-                            cfg.new_gaussian_md_threshold,
-                            cfg.birth_gaussian_weight)
-    got = mu.map_update2d_plain(*planes(state), z, z_mask, params,
-                                cfg.new_per_z)
-    want = jfused(*(jnp.asarray(a.numpy()) for a in planes(state)),
-                  jnp.asarray(z.numpy()), jnp.asarray(z_mask.numpy()),
-                  jnp.asarray(np.float32(params)), new_per_z=cfg.new_per_z,
-                  interpret=True)
+def assert_twin_matches_pallas(args, z, z_mask, params, T):
+    """The twin against the Pallas kernel (interpret mode) on the same
+    numpy inputs, with tests/test_map_update_fused.py's tolerances; returns
+    both results."""
+    got = mu.map_update2d_plain(*(t(a) for a in args), t(z), t(z_mask),
+                                params, T)
+    want = jfused(*(jnp.asarray(a) for a in args), jnp.asarray(z),
+                  jnp.asarray(z_mask), jnp.asarray(np.float32(params)),
+                  new_per_z=T, interpret=True)
     for name, rtol, atol in (("pd", 1e-6, 1e-7), ("col_sum", 5e-5, 1e-7),
                              ("w", 5e-5, 1e-7), ("w_prev", 0, 0),
                              ("K", 1e-4, 1e-6), ("cov_upd", 1e-4, 1e-6),
@@ -84,9 +81,102 @@ def test_twin_matches_pallas_kernel(midrun):
     np.testing.assert_array_equal(got.unused.numpy(),
                                   np.asarray(want.unused))
     nz = np.asarray(want.cand_w) > 0
-    assert nz.sum() > 50
     np.testing.assert_array_equal(got.cand_m.numpy()[nz],
                                   np.asarray(want.cand_m)[nz])
+    return got, want
+
+
+def test_twin_matches_pallas_kernel(midrun):
+    jfilt, filt, state, z, z_mask = midrun
+    cfg = filt.cfg
+    params = mu.pack_params(filt.meas, filt.gates,
+                            cfg.new_gaussian_md_threshold,
+                            cfg.birth_gaussian_weight)
+    _, want = assert_twin_matches_pallas(
+        [a.numpy() for a in planes(state)], z.numpy(), z_mask.numpy(),
+        params, cfg.new_per_z)
+    assert (np.asarray(want.cand_w) > 0).sum() > 50
+
+
+def edge_inputs(state, z, z_mask, case):
+    """numpy kernel inputs for the cases the CUDA design hinges on, cut
+    from the mid-run state (P=16, M=128, Zc=24)."""
+    a = [x.numpy().copy() for x in planes(state)]
+    z, zm = z.numpy().copy(), z_mask.numpy().copy()
+    if case == "ties":
+        # slots 64-127 repeat slots 0-63: equal table values in a column
+        for x in a[1:]:
+            x[:, 64:] = x[:, :64]
+    elif case == "sparse":
+        # three alive slots a particle and none in particle 0: columns
+        # with fewer than T positive cells, and all-zero columns
+        a[8][:, 3:] = False
+        a[8][0] = False
+    elif case == "M=100":
+        a = a[:1] + [x[:, :100] for x in a[1:]]
+    elif case == "Zc=1":
+        k = int(np.flatnonzero(zm)[0])
+        z, zm = z[k:k + 1], zm[k:k + 1]
+    elif case == "negative weights":
+        a[6][:, ::3] *= -1.0
+    elif case == "crowded":
+        # every slot a copy of an alive one: ties, many columns with more
+        # than T positive cells
+        alive = a[8]
+        n = int(alive.sum(axis=1).min())
+        first = np.argsort(~alive, axis=1, kind="stable")[:, :n]
+        crowd = np.tile(first, (1, -(-128 // n)))[:, :128]
+        a = a[:1] + [np.take_along_axis(x, crowd, axis=1) for x in a[1:]]
+    return a, z, zm
+
+
+@pytest.mark.parametrize("case", ["ties", "sparse", "M=100", "Zc=1", "T=1",
+                                  "negative weights", "crowded"])
+def test_twin_matches_pallas_kernel_edges(midrun, case):
+    """Tied values (cand_m takes the lowest index first), columns with
+    fewer than T positive cells, M not a multiple of 32, one measurement,
+    columns with more than T positive cells, negative table entries, every
+    slot alive."""
+    _, filt, state, z, z_mask = midrun
+    T = 1 if case == "T=1" else filt.cfg.new_per_z
+    args, z, zm = edge_inputs(state, z, z_mask, case)
+    _, want = assert_twin_matches_pallas(args, z, zm, filt._map_params, T)
+    Zc = z.shape[0]
+    cw = np.asarray(want.cand_w).reshape(-1, T, Zc)
+    cm = np.asarray(want.cand_m).reshape(-1, T, Zc)
+    if case == "ties":
+        # a column's next pick has the same weight at a higher slot
+        tie = (cw[:, 1:] == cw[:, :-1]) & (cw[:, 1:] > 0)
+        assert tie.any()
+        assert (cm[:, 1:][tie] == cm[:, :-1][tie] + 64).all()
+    if case == "sparse":
+        assert ((cw[:, 0] > 0) & (cw[:, -1] == 0)).any()
+        assert (cw[0] == 0).all()
+    if case == "crowded":
+        assert (cw[:, -1] > 0).any()
+    if case == "negative weights":
+        # negative table entries pull a column sum below the clutter term
+        assert (np.asarray(want.col_sum) < filt._map_params[4]).any()
+
+
+def test_launch_plan_fits_every_size():
+    """Every M up to MAX_SLOTS with Zc <= 64 launches within Hopper's
+    limits, and the bench shape holds its whole table at once."""
+    for M in range(1, mu.MAX_SLOTS + 1):
+        for Zc in range(65):
+            threads, smem, zb = mu.launch_plan(200, M, Zc, 8)
+            assert threads % 32 == 0 and 32 <= threads <= mu.MAX_THREADS
+            assert smem <= 232_448
+            assert 1 <= zb <= max(Zc, 1)
+    assert mu.launch_plan(200, 128, 40, 8) == (512, 4 * (120 + 10 * 128 + 4
+                                                         + 40 * 128), 40)
+
+
+@pytest.mark.parametrize("P,M,Zc", [(200, 1025, 40), (200, 0, 40),
+                                    (0, 128, 40), (200, 128, 60_000)])
+def test_launch_plan_rejects(P, M, Zc):
+    with pytest.raises(ValueError):
+        mu.launch_plan(P, M, Zc, 8)
 
 
 def test_twin_matches_xla_formulas(midrun):
