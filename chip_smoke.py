@@ -16,8 +16,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (gated chains across 32-slot words, every slot alive, N=100, a
    particle with no alive slot), with the maximum absolute error of each;
 4b. ``merge3d``: kernel against its plain twin at Victoria Park's width
-   (P=100, N=512) on random 3-D mixtures with 40-400 alive slots and on the
-   merge input of the synthetic Victoria Park stream after 200 frames;
+   (P=100, N=512) on the merge input of the synthetic Victoria Park stream
+   after 200 frames, on random 3-D mixtures with 40-400 alive slots (several
+   passes) and on edge mixtures (gated chains across 32-slot words, every
+   slot alive, N=100, N=1024, a particle with no alive slot, a gated pair
+   of zero weight), with the maximum absolute error of each;
 5. the full bench-configuration replay of ``native/bl_dump`` (3,000 steps,
    P=200) through both 2-D kernels: launch counts, finite outputs, and the
    median pose error within a divergence bound of 0.3 m (bench gate 0.12 m);
@@ -27,7 +30,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``merge3d`` launches once per frame with measurements, finite outputs,
    and the trajectory RMSE against the stream's GPS below dead
    reckoning's and within a divergence bound;
-5d. 200 frames of a stream with lidar scans (the scan-dependent Pd);
+5d. ``merge3d`` checked and timed on the merge input of frame 2,000, the
+   state 5c ends in, with its alive slots per particle, passes and merged
+   pairs;
+5e. 200 frames of a stream with lidar scans (the scan-dependent Pd);
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -143,27 +149,40 @@ def map_update_bound(args, out):
     return bound(nbytes(*ins) + nbytes(*outs), flop)
 
 
-def merge_bound(gm_ops, gm, out, threshold, f_inflation, pair_flop,
-                inv_flop, merge_flop):
-    """Every plane read once and written once; the operations of this
-    input's passes: each particle runs passes until one merges nothing
-    (counted with the twin's passes), each pass inverts its alive slots'
-    covariances, gate-tests every pair of its alive slots once and merges
-    its pairs."""
+def merge_trace(gm_ops, gm, threshold, f_inflation, max_passes=8):
+    """The passes of the merge fixpoint as the kernels run them, each
+    particle until one of its passes merges nothing, counted with the
+    twin's passes: per pass, (the particles still running [P], their alive
+    slots [P], the pairs each merged [P])."""
     t2 = threshold * threshold
     active = gm.alive.new_ones(gm.alive.shape[0])
-    flop = 0.0
-    g = gm
-    for _ in range(8):
-        a = g.alive.sum(dim=1).double()
-        g2, _ = gm_ops._merge_pass(g, t2, f_inflation)
-        merged = a - g2.alive.sum(dim=1).double()
-        flop += float((active * (a * inv_flop + a * (a - 1) / 2 * pair_flop
-                                 + merged * merge_flop)).sum())
+    trace = []
+    for _ in range(max_passes):
+        a = gm.alive.sum(dim=1).double()
+        gm, _ = gm_ops._merge_pass(gm, t2, f_inflation)
+        merged = a - gm.alive.sum(dim=1).double()
+        trace.append((active, a, merged * active))
         active = active & (merged > 0)
-        g = g2
         if not bool(active.any()):
             break
+    return trace
+
+
+def merge_bound(gm_ops, gm, out, threshold, f_inflation, inv_flop,
+                merge_flop):
+    """Every plane read once and written once; the operations of this
+    input's passes (:func:`merge_trace`): each pass inverts its alive
+    slots' covariances, gate-tests every pair of its alive slots once and
+    merges its pairs.  A pair's two-way gate needs the D subtractions of
+    v = mu_j - mu_k, the T = D(D+1)/2 products of v's entries (shared by
+    both quadratic forms) and, per form, T multiplies and T - 1 adds: 31
+    FLOP at D=3, 15 at D=2 (its two comparisons are not counted)."""
+    tri = gm.dim * (gm.dim + 1) // 2
+    pair_flop = gm.dim + tri + 2 * (2 * tri - 1)
+    flop = sum(float((active * (a * inv_flop + a * (a - 1) / 2 * pair_flop
+                                + merged * merge_flop)).sum())
+               for active, a, merged in merge_trace(gm_ops, gm, threshold,
+                                                    f_inflation))
     planes = [gm.mean, gm.cov, gm.w, gm.w_prev, gm.alive]
     out_planes = [out.mean, out.cov, out.w, out.w_prev, out.alive]
     return bound(nbytes(*planes) + nbytes(*out_planes), flop)
@@ -350,18 +369,20 @@ def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
         torch, "merge2d", lambda: mg.merge2d(gm, thr, infl),
         lambda: mg.merge2d_plain(gm, thr, infl)),
         *merge_bound(gm_ops, gm, mg.merge2d(gm, thr, infl), thr, infl,
-                     pair_flop=22, inv_flop=7, merge_flop=30))
+                     inv_flop=7, merge_flop=30))
 
 
-def random_mixtures3(torch, GMState, rng, P, N, dev):
+def random_mixtures3(torch, GMState, rng, P, N, dev, n_alive=(40, 400)):
     """Random D=3 mixtures (tests/test_pallas_merge3d.py's: diameters
-    0.2-1.0), 40-400 alive slots per particle, alive first."""
+    0.2-1.0), ``n_alive`` (at most N) alive slots per particle, alive
+    first."""
     mean = rng.uniform(-3, 3, size=(P, N, 3)).astype(np.float32)
     mean[..., 2] = rng.uniform(0.2, 1.0, size=(P, N))
     A = rng.normal(size=(P, N, 3, 3)).astype(np.float32) * 0.2
     cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(3, dtype=np.float32)
     w = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
-    alive = np.arange(N)[None, :] < rng.integers(40, 401, size=(P, 1))
+    alive = np.arange(N)[None, :] < rng.integers(
+        n_alive[0], min(n_alive[1], N) + 1, size=(P, 1))
     t = lambda a: torch.as_tensor(a, device=dev)
     return GMState(
         mean=t(np.moveaxis(mean, -1, 0).copy()),
@@ -370,39 +391,119 @@ def random_mixtures3(torch, GMState, rng, P, N, dev):
         w=t(w), w_prev=t(w * 0.5), alive=t(alive))
 
 
-def check_merge3d(torch, m3, gm_ops, GMState, filt, midrun_gm, dev):
-    """merge3d against its twin: alive exact, floats within
-    tests/test_pallas_merge3d.py's tolerances."""
+def edge_mixtures3(torch, GMState, rng, P, N, dev):
+    """The D=3 mixtures the kernel's gate bit mask hinges on, at the
+    path's width: gated chains across 32-slot words (500 alive, so the
+    alive bound is no multiple of 32), every slot alive, N=100, N=1024, a
+    particle with no alive slot, and a gated pair of zero weight in every
+    particle (slots 0 and 1), which keeps both slots."""
+    mean = rng.uniform(-100, 100, size=(3, P, N)).astype(np.float32)
+    mean[2] = 0.5
+    for s0 in (30, 62, 254, 478):
+        mean[0, :, s0:s0 + 5] = 0.25 * np.arange(5) + s0
+        mean[1, :, s0:s0 + 5] = 0.0
+    cov = np.zeros((6, P, N), np.float32)
+    cov[0] = cov[3] = cov[5] = 0.04
+    w = np.tile(np.linspace(1.0, 0.2, N, dtype=np.float32), (P, 1))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    chains = GMState(mean=t(mean), cov=t(cov), w=t(w), w_prev=t(w * 0.5),
+                     alive=t(np.arange(N)[None, :] < 500).expand(P, N)
+                     .contiguous())
+    full = random_mixtures3(torch, GMState, rng, P, N, dev, (N, N))
+    empty = random_mixtures3(torch, GMState, rng, P, N, dev)
+    empty.alive[1] = False
+    zero = random_mixtures3(torch, GMState, rng, P, N, dev)
+    zero.mean[:, :, 1] = zero.mean[:, :, 0] + 1e-3
+    zero.w[:, :2] = 0.0
+    return [("word boundary", chains), ("all alive", full),
+            ("N=100", random_mixtures3(torch, GMState, rng, P, 100, dev,
+                                       (40, 100))),
+            ("N=1024", random_mixtures3(torch, GMState, rng, P, 1024, dev,
+                                        (400, 1024))),
+            ("empty particle", empty), ("zero-weight pair", zero)]
+
+
+def compare_merge3d(torch, m3, name, gm, thr, infl):
+    """merge3d against its twin on one input: alive exact, floats within
+    tests/test_pallas_merge3d.py's tolerances; returns the twin's output
+    and the maximum absolute error."""
+    k = m3.merge3d(gm, thr, infl)
+    p = m3.merge3d_plain(gm, thr, infl)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.alive.cpu().numpy(),
+                                  p.alive.cpu().numpy(),
+                                  err_msg=f"merge3d alive ({name})")
+    a = p.alive.cpu().numpy()
+    err = max(close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
+              close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
+              close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-4, a),
+              close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a))
+    print(f"merge3d: kernel == twin on {name} mixtures "
+          f"(N={gm.capacity}, {int(gm.count().sum())} -> "
+          f"{int(p.count().sum())} alive; max abs error {err:.3g})",
+          flush=True)
+    return p, err
+
+
+def merge3d_cases(torch, GMState, filt, frame200_gm, dev):
+    """merge3d's checked inputs: the Victoria Park merge input after 200
+    frames, random mixtures at threshold 1.5 (several passes) and the edge
+    mixtures, at the path's P=100 and N=512."""
     cfg = filt.cfg
-    cases = [("mid-run", gm_ops.compact(midrun_gm, midrun_gm.capacity),
-              cfg.merge_threshold, cfg.merge_inflation)]
+    P, N = cfg.n_particles, cfg.map_capacity
+    cases = [("frame-200", frame200_gm, cfg.merge_threshold,
+              cfg.merge_inflation)]
     rng = np.random.default_rng(1)
     for _ in range(2):
-        cases.append(("random", random_mixtures3(
-            torch, GMState, rng, cfg.n_particles, cfg.map_capacity, dev),
-            1.5, 1.5))
+        cases.append(("random", random_mixtures3(torch, GMState, rng, P, N,
+                                                 dev), 1.5, 1.5))
+    return cases + [(name, gm, 1.5, 1.5) for name, gm in
+                    edge_mixtures3(torch, GMState, rng, P, N, dev)]
+
+
+def check_merge3d(torch, m3, GMState, filt, frame200_gm, dev):
+    """merge3d against its twin on every checked input; returns the
+    largest absolute error."""
     errs = []
-    for name, gm, thr, infl in cases:
-        k = m3.merge3d(gm, thr, infl)
-        p = m3.merge3d_plain(gm, thr, infl)
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(k.alive.cpu().numpy(),
-                                      p.alive.cpu().numpy(),
-                                      err_msg=f"merge3d alive ({name})")
-        a = p.alive.cpu().numpy()
-        errs += [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
-                 close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
-                 close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-4, a),
-                 close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
-        print(f"merge3d: kernel == twin on {name} mixtures "
-              f"({int(gm.count().sum())} -> {int(p.count().sum())} alive)",
-              flush=True)
-    gm, thr, infl = cases[0][1:]
-    return (max(errs), *kernel_vs_twin_ms(
+    for name, gm, thr, infl in merge3d_cases(torch, GMState, filt,
+                                             frame200_gm, dev):
+        p, err = compare_merge3d(torch, m3, name, gm, thr, infl)
+        errs.append(err)
+        if name == "zero-weight pair" and not bool(p.alive[:, :2].all()):
+            raise AssertionError("merge3d: a zero-weight pair lost a slot")
+    return max(errs)
+
+
+def vp_merge_input(torch, gm_ops, filt, state, stream, j, dev):
+    """The merge input of frame ``j``: the map update of its measurements
+    on ``state``, compacted as gm.merge compacts it."""
+    gm = filt._map_update(
+        state, torch.as_tensor(stream.z[j], dtype=torch.float32, device=dev),
+        torch.as_tensor(stream.z_mask[j], device=dev))[0]
+    return gm_ops.compact(gm, gm.capacity)
+
+
+def time_merge3d(torch, m3, gm_ops, filt, gm, err):
+    """merge3d and its twin timed on the mid-stream merge input (checked
+    first), with the state's alive slots, passes and merged pairs."""
+    thr, infl = filt.cfg.merge_threshold, filt.cfg.merge_inflation
+    _, case_err = compare_merge3d(torch, m3, "mid-stream", gm, thr, infl)
+    trace = merge_trace(gm_ops, gm, thr, infl)
+    alive = gm.alive.sum(dim=1).cpu().numpy()
+    print(json.dumps({
+        "merge3d_state": f"frame {VP_FRAMES} merge input",
+        "alive_per_particle": {"min": int(alive.min()),
+                               "median": float(np.median(alive)),
+                               "max": int(alive.max())},
+        "passes_max": len(trace),
+        "passes_total": int(sum(float(a.sum()) for a, _, _ in trace)),
+        "pairs_merged": int(sum(float(m.sum()) for _, _, m in trace))}),
+        flush=True)
+    return (max(err, case_err), *kernel_vs_twin_ms(
         torch, "merge3d", lambda: m3.merge3d(gm, thr, infl),
         lambda: m3.merge3d_plain(gm, thr, infl)),
         *merge_bound(gm_ops, gm, m3.merge3d(gm, thr, infl), thr, infl,
-                     pair_flop=45, inv_flop=25, merge_flop=60))
+                     inv_flop=25, merge_flop=60))
 
 
 def vp_streams():
@@ -498,19 +599,18 @@ def main(argv=None) -> int:
     mg_row = check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask,
                          dev)
 
-    # ---- 4b. merge3d on the Victoria Park path's merge inputs
+    # ---- 4b. merge3d on the Victoria Park merge input after 200 frames
+    # and on edge mixtures (timed after 5c, on the mid-stream state)
     vp_plain, vp_scans, vp_cfg = vp_streams()
     vp_filt, vp_icov, ack = vp_app.build(XmlConfig(vp_cfg), device=dev)
     stream = vp_io.load(vp_plain, z_capacity=vp_app.Z_CAPACITY, ackerman=ack)
     gen = torch.Generator(device=dev).manual_seed(0)
     vp_state, _ = vp_app.run(vp_filt, vp_icov,
                              vp_app.head(stream, VP_MIDRUN_FRAMES), gen)
-    j = VP_MIDRUN_FRAMES
-    vp_gm = vp_filt._map_update(
-        vp_state, torch.as_tensor(stream.z[j], dtype=torch.float32,
-                                  device=dev),
-        torch.as_tensor(stream.z_mask[j], device=dev))[0]
-    m3_row = check_merge3d(torch, m3, gm_ops, GMState, vp_filt, vp_gm, dev)
+    m3_err = check_merge3d(
+        torch, m3, GMState, vp_filt,
+        vp_merge_input(torch, gm_ops, vp_filt, vp_state, stream,
+                       VP_MIDRUN_FRAMES, dev), dev)
 
     # ---- 5. the full replay through both 2-D kernels
     gt, inputs = app.load_bl_dump(BL_DUMP)
@@ -580,7 +680,13 @@ def main(argv=None) -> int:
         raise AssertionError(f"Victoria Park RMSE {rmse} m > "
                              f"{VP_DIVERGENCE_BOUND_M} m")
 
-    # ---- 5d. the scan-dependent Pd on a stream with lidar scans
+    # ---- 5d. merge3d timed on the merge input of frame VP_FRAMES
+    m3_row = time_merge3d(
+        torch, m3, gm_ops, vp_filt,
+        vp_merge_input(torch, gm_ops, vp_filt, vp_state, stream, VP_FRAMES,
+                       dev), m3_err)
+
+    # ---- 5e. the scan-dependent Pd on a stream with lidar scans
     scan_frames = vp_io.load(vp_scans, z_capacity=vp_app.Z_CAPACITY,
                              ackerman=ack)
     gen = torch.Generator(device=dev).manual_seed(0)

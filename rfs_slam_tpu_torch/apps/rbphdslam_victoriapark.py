@@ -44,8 +44,12 @@ def build(cfg: XmlConfig, z_capacity: int = Z_CAPACITY,
           map_capacity: int = MAP_CAPACITY, n_particles: int | None = None,
           z_dp_max: int = 8, device: torch.device | None = None):
     """Wiring per rbphdslam_VictoriaPark.cpp:360-400.  Returns ``(filter,
-    input_cov [2, 2], ackerman geometry)``, tensors on ``device``."""
-    device = device or torch.device("cpu")
+    input_cov [2, 2], ackerman geometry)``, tensors on ``device``: the card
+    unless the caller asks for the CPU.  Raises where no card is."""
+    device = device or torch.device("cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("victoriapark: no CUDA device; pass "
+                           "device=torch.device('cpu') to run on the CPU")
 
     def ten(a):
         # formed in float64, rounded once, as the JAX package rounds it

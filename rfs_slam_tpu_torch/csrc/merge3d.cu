@@ -20,156 +20,173 @@
 //
 // What bounds it on the card: the data is 11 f32 planes + alive x P x N
 // (4.6 MB in and out at P=100, N=512); each pass is O(n_alive^2 / 2) gate
-// tests of ~45 FLOP per particle.  Both are far below the card's rates: the
-// kernel is latency-bound, by a handful of barriers per pass and the serial
-// scan for each slot's lowest gated partner.
+// tests of ~45 FLOP per particle, on one SM per particle.  On the Victoria
+// Park path's maps (~300-400 alive slots from mid-stream on) one pass runs
+// and nothing merges, and the gate rows are ~80% of the kernel: with
+// 32 warps an SM's four schedulers issue them near their rate (two quads
+// of 12 FMUL and 5 FADD a pair: -fmad=false).  The first port ran one
+// thread per slot, and each thread scanned the slots below it one gate at
+// a time for its lowest gated partner (up to hi dependent gate
+// evaluations, the whole pass when no pair is gated), then again for its
+// lowest safe partner, and every slot recomputed its inverse every pass.
 //
-// Design: one CTA per particle, one thread per slot (100 CTAs on 132 SMs at
-// Victoria Park's P=100: under one wave).  The 11 slot planes, the 6
-// inverse planes, alive, first_any and j_star live in shared memory for the
-// whole fixpoint (20 x N x 4 B = 40 KB at N=512; above 48 KB the launch
-// raises the dynamic shared-memory limit).  The pass loop runs in the
-// kernel with __syncthreads_or as the "any merged" test.  Partners are
-// gathered by an indexed shared-memory load (the TPU kernel used a
-// selection-matrix matmul).  The pair search's i-axis is bounded per CTA by
-// one past its highest alive slot (exact: slots only die during the
-// fixpoint), which replaces the TPU's static absorber tiers.
+// Design: merge2d.cu's.  One CTA per particle (100 CTAs on 132 SMs at
+// Victoria Park's P=100: one wave), with 32 warps (one CTA an SM) and one
+// thread per slot for the slot-wise phases.  The slot fields live in shared memory
+// for the whole fixpoint, the gate fields of a slot as two float4 and a
+// float, and the pass loop runs inside the kernel with __syncthreads_or as
+// the "any merged" test.  The pair search is the gate bit mask of
+// merge_bitmask.cuh: a warp evaluates the 32 gates of a row word per
+// ballot, two rows at a time, each gate once a pass, and a slot finds its
+// absorber in ceil(j / 32) word tests.  The mask is N x ceil(N / 32) words
+// (32 KB at N=512, 128 KB at N=1024).  S^-1 is computed once at entry and
+// again only by an absorber, for its merged covariance.  A pass has three
+// barriers: after the gate rows, after the claims, and the "any merged"
+// test; each absorber reads its partner and writes its own fields in one
+// phase (absorbers are safe, so unclaimed, and absorbed slots absorb
+// nothing).  The i-axis of the pair search is bounded per CTA by one past
+// its highest alive slot (exact: slots only die during the fixpoint),
+// which replaces the TPU's static absorber tiers; the header bounds the
+// j-axis the same way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_bitmask.cuh"
+
 namespace {
 
-constexpr int kPlanes = 11;  // mx my md | c00 c01 c02 c11 c12 c22 | w wp
+constexpr int kMaxThreads = 1024;
+constexpr int kCov = 6;  // packed c00 c01 c02 c11 c12 c22
 
-// plane pointers, passed by value in the kernel's parameters
-struct Planes {
-  float* p[kPlanes];
+// two-way gate for the pair k < j, both alive (GaussianMixture.hpp:430-441).
+// A slot's gate fields are two float4, (x, y, d, S^-1_00) and (2 S^-1_01,
+// 2 S^-1_02, S^-1_11, 2 S^-1_12), and S^-1_22: the factor 2 is exact, and
+// 2 * a01 * v0 * v1 multiplies left to right, so each term and the sum in
+// planar.quad_sym's order round as the twin's.
+struct Gate3 {
+  const float4* ga;
+  const float4* gb;
+  const float* i22;
+  float t2;
+  struct Fields {
+    float4 a;
+    float4 b;
+    float c;
+  };
+  __device__ Fields fields(int s) const { return {ga[s], gb[s], i22[s]}; }
+  // v^T S^-1 v: m00 v0 v0, 2 m01 v0 v1, 2 m02 v0 v2, m11 v1 v1,
+  // 2 m12 v1 v2, m22 v2 v2
+  static __device__ float quad(const Fields& f, float v0, float v1,
+                               float v2) {
+    float q = f.a.w * v0 * v0;
+    q = q + f.b.x * v0 * v1;
+    q = q + f.b.y * v0 * v2;
+    q = q + f.b.z * v1 * v1;
+    q = q + f.b.w * v1 * v2;
+    q = q + f.c * v2 * v2;
+    return q;
+  }
+  __device__ bool test(const Fields& k, const Fields& j) const {
+    const float v0 = j.a.x - k.a.x;
+    const float v1 = j.a.y - k.a.y;
+    const float v2 = j.a.z - k.a.z;
+    // both quads, no branch between them: their chains interleave
+    return (quad(k, v0, v1, v2) <= t2) | (quad(j, v0, v1, v2) <= t2);
+  }
 };
 
-__global__ void merge3d_kernel(float t2, float infl, int max_passes, int N,
-                               const Planes in,
-                               const bool* __restrict__ alive_in,
-                               const Planes out,
-                               bool* __restrict__ alive_out) {
-  extern __shared__ float smem[];
-  float* s[kPlanes];
-  #pragma unroll
-  for (int k = 0; k < kPlanes; ++k) s[k] = smem + k * N;
-  float* s_inv = smem + kPlanes * N;  // 6 planes
-  int* s_alive = reinterpret_cast<int*>(s_inv + 6 * N);
-  int* s_first_any = s_alive + N;
-  int* s_jstar = s_first_any + N;
+// S^-1 of the packed covariance by the adjugate (planar.det_sym / inv_sym
+// for D=3) into the gate fields, as the twin rounds it
+__device__ __forceinline__ void invert(const float* c, float4& ga, float4& gb,
+                                       float& i22) {
+  const float a = c[0], b = c[1], cc = c[2];
+  const float d = c[3], e = c[4], f = c[5];
+  const float det = a * (d * f - e * e) - b * (b * f - e * cc) +
+                    cc * (b * e - d * cc);
+  ga.w = (d * f - e * e) / det;
+  gb.x = 2.0f * ((cc * e - b * f) / det);
+  gb.y = 2.0f * ((b * e - cc * d) / det);
+  gb.z = (a * f - cc * cc) / det;
+  gb.w = 2.0f * ((cc * b - a * e) / det);
+  i22 = (a * d - b * b) / det;
+}
+
+// inputs: mean [3, P, N], cov [6, P, N], w, w_prev [P, N]; out: one float
+// buffer of 11 planes [P, N] (mean x/y/d, cov 00/01/02/11/12/22, w, w_prev)
+__global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
+    float t2, float infl, int max_passes, int N,
+    const float* __restrict__ mean, const float* __restrict__ cov,
+    const float* __restrict__ w_in, const float* __restrict__ wp_in,
+    const bool* __restrict__ alive_in, float* __restrict__ out,
+    bool* __restrict__ alive_out) {
+  // shared memory (the wrapper's launch_plan sizes it the same way)
+  const int W = merge_bitmask::words(N);
+  extern __shared__ float4 smem[];
+  float4* s_ga = smem;                // (x, y, d, S^-1_00)
+  float4* s_gb = s_ga + N;            // (2 S^-1_01, 2 S^-1_02, S^-1_11, 2 S^-1_12)
+  float* s_i22 = reinterpret_cast<float*>(s_gb + N);
+  float* s_cov = s_i22 + N;           // kCov planes of N
+  float* s_w = s_cov + kCov * N;
+  float* s_wp = s_w + N;
+  int* s_alive = reinterpret_cast<int*>(s_wp + N);
+  int* s_jstar = s_alive + N;
+  unsigned* s_gate = reinterpret_cast<unsigned*>(s_jstar + N);  // [N, W]
+  unsigned* s_safe = s_gate + static_cast<size_t>(N) * W;       // [W]
   __shared__ int s_hi;
 
-  float* const mx = s[0];
-  float* const my = s[1];
-  float* const md = s[2];
-  float* const c00 = s[3];
-  float* const c01 = s[4];
-  float* const c02 = s[5];
-  float* const c11 = s[6];
-  float* const c12 = s[7];
-  float* const c22 = s[8];
-  float* const w = s[9];
-  float* const wp = s[10];
-  float* const i00 = s_inv;
-  float* const i01 = s_inv + N;
-  float* const i02 = s_inv + 2 * N;
-  float* const i11 = s_inv + 3 * N;
-  float* const i12 = s_inv + 4 * N;
-  float* const i22 = s_inv + 5 * N;
-
+  const size_t PN = static_cast<size_t>(gridDim.x) * N;
   const int i = threadIdx.x;
   const bool act = i < N;
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
+  const size_t pi = static_cast<size_t>(blockIdx.x) * N + i;
 
+  // S^-1: once here, then again only where a merge changed S
   if (i == 0) s_hi = 0;
   if (act) {
+    float c[kCov];
     #pragma unroll
-    for (int k = 0; k < kPlanes; ++k) s[k][i] = in.p[k][base + i];
-    s_alive[i] = alive_in[base + i] ? 1 : 0;
+    for (int t = 0; t < kCov; ++t) c[t] = s_cov[t * N + i] = cov[t * PN + pi];
+    float4 ga, gb;
+    ga.x = mean[pi];
+    ga.y = mean[PN + pi];
+    ga.z = mean[2 * PN + pi];
+    invert(c, ga, gb, s_i22[i]);
+    s_ga[i] = ga;
+    s_gb[i] = gb;
+    s_w[i] = w_in[pi];
+    s_wp[i] = wp_in[pi];
+    s_alive[i] = alive_in[pi] ? 1 : 0;
+    s_jstar[i] = N;
   }
+  merge_bitmask::clear_safe(s_safe, W);
   __syncthreads();
   if (act && s_alive[i]) atomicMax(&s_hi, i + 1);
   __syncthreads();
   const int hi = s_hi;
-
-  // v^T S^-1 v in planar.quad_sym's order: diagonal term of row 0, then
-  // 2 m01 v0 v1, 2 m02 v0 v2, m11 v1 v1, 2 m12 v1 v2, m22 v2 v2
-  auto quad = [&](int k, float v0, float v1, float v2) {
-    float q = i00[k] * v0 * v0;
-    q = q + 2.0f * i01[k] * v0 * v1;
-    q = q + 2.0f * i02[k] * v0 * v2;
-    q = q + i11[k] * v1 * v1;
-    q = q + 2.0f * i12[k] * v1 * v2;
-    q = q + i22[k] * v2 * v2;
-    return q;
-  };
-  // two-way gate for the pair k < j, both alive (GaussianMixture.hpp:430-441)
-  auto gate = [&](int k, int j) {
-    if (!s_alive[k]) return false;
-    const float v0 = mx[j] - mx[k];
-    const float v1 = my[j] - my[k];
-    const float v2 = md[j] - md[k];
-    return quad(k, v0, v1, v2) <= t2 || quad(j, v0, v1, v2) <= t2;
-  };
+  const Gate3 gate{s_ga, s_gb, s_i22, t2};
 
   for (int pass = 0; pass < max_passes; ++pass) {
-    if (act) {
-      // inverse by the adjugate, planar.det_sym / inv_sym for D=3
-      const float a = c00[i], b = c01[i], c = c02[i];
-      const float d = c11[i], e = c12[i], f = c22[i];
-      const float det = a * (d * f - e * e) - b * (b * f - e * c) +
-                        c * (b * e - d * c);
-      i00[i] = (d * f - e * e) / det;
-      i01[i] = (c * e - b * f) / det;
-      i02[i] = (b * e - c * d) / det;
-      i11[i] = (a * f - c * c) / det;
-      i12[i] = (c * b - a * e) / det;
-      i22[i] = (a * d - b * b) / det;
-      s_jstar[i] = N;
-    }
+    merge_bitmask::gate_rows(gate, s_alive, hi, W, s_gate, s_safe);
+    __syncthreads();
+    // a safe slot has no gated partner below it, so nothing to claim
+    if (i < hi && !((s_safe[i >> 5] >> (i & 31)) & 1u))
+      merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
     __syncthreads();
 
-    // lowest gated partner below this slot: a slot that has one cannot
-    // absorb this pass (safe-absorber rule)
-    const bool alive_i = act && s_alive[i];
-    const int k_end = min(i, hi);
-    int first_any = N;
-    if (alive_i) {
-      for (int k = 0; k < k_end; ++k) {
-        if (gate(k, i)) { first_any = k; break; }
-      }
-    }
-    if (act) s_first_any[i] = first_any;
-    __syncthreads();
-
-    // the lowest safe absorber claims this slot; each absorber keeps its
-    // lowest claimed slot
-    if (first_any < N) {
-      for (int k = first_any; k < k_end; ++k) {
-        if (s_first_any[k] == N && gate(k, i)) {
-          atomicMin(&s_jstar[k], i);
-          break;
-        }
-      }
-    }
-    __syncthreads();
-
+    // An absorber is safe, so no slot claims it, and an absorbed slot
+    // absorbs nothing: each absorber alone reads its fields and its
+    // partner's, and writes its own, so reads and writes need no barrier.
     const int js = act ? s_jstar[i] : N;
     bool ok = false;
-    float nm[3] = {0.f, 0.f, 0.f};
-    float nc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float nw = 0.f;
     if (js < N) {
-      const float w1 = w[i], w2 = w[js];
+      const float w1 = s_w[i], w2 = s_w[js];
       const float wm = w1 + w2;
       ok = wm != 0.f;
       const float w1n = w1 / wm, w2n = w2 / wm;
-      const float x1[3] = {mx[i], my[i], md[i]};
-      const float x2[3] = {mx[js], my[js], md[js]};
-      float d1[3], d2[3];
+      const float4 a1 = s_ga[i], a2 = s_ga[js];
+      const float x1[3] = {a1.x, a1.y, a1.z};
+      const float x2[3] = {a2.x, a2.y, a2.z};
+      float nm[3], d1[3], d2[3];
       #pragma unroll
       for (int t = 0; t < 3; ++t) {
         nm[t] = x1[t] * w1n + x2[t] * w2n;
@@ -177,61 +194,67 @@ __global__ void merge3d_kernel(float t2, float infl, int max_passes, int N,
         d2[t] = nm[t] - x2[t];
       }
       // packed (r, c) pairs in tri_index order
-      const int pr[6] = {0, 0, 0, 1, 1, 2};
-      const int pc[6] = {0, 1, 2, 1, 2, 2};
+      const int pr[kCov] = {0, 0, 0, 1, 1, 2};
+      const int pc[kCov] = {0, 1, 2, 1, 2, 2};
+      float nc[kCov];
       #pragma unroll
-      for (int t = 0; t < 6; ++t) {
-        const float* cp = s[3 + t];
+      for (int t = 0; t < kCov; ++t) {
+        const float* cp = s_cov + t * N;
         nc[t] = w1n * (cp[i] + infl * d1[pr[t]] * d1[pc[t]]) +
                 w2n * (cp[js] + infl * d2[pr[t]] * d2[pc[t]]);
       }
-      nw = wm;
+      if (ok) {
+        float4 ga, gb;
+        ga.x = nm[0];
+        ga.y = nm[1];
+        ga.z = nm[2];
+        #pragma unroll
+        for (int t = 0; t < kCov; ++t) s_cov[t * N + i] = nc[t];
+        invert(nc, ga, gb, s_i22[i]);
+        s_ga[i] = ga;
+        s_gb[i] = gb;
+        s_w[i] = wm;
+        s_wp[i] = 0.f;
+        s_alive[js] = 0;
+      }
     }
-    __syncthreads();  // every partner read is done before any write
-    if (ok) {
-      mx[i] = nm[0];
-      my[i] = nm[1];
-      md[i] = nm[2];
-      #pragma unroll
-      for (int t = 0; t < 6; ++t) s[3 + t][i] = nc[t];
-      w[i] = nw;
-      wp[i] = 0.f;
-      s_alive[js] = 0;
-    }
+    if (act) s_jstar[i] = N;
+    merge_bitmask::clear_safe(s_safe, W);
     if (!__syncthreads_or(ok)) break;
   }
 
   if (act) {
+    out[pi] = s_ga[i].x;
+    out[PN + pi] = s_ga[i].y;
+    out[2 * PN + pi] = s_ga[i].z;
     #pragma unroll
-    for (int k = 0; k < kPlanes; ++k) out.p[k][base + i] = s[k][i];
-    alive_out[base + i] = s_alive[i] != 0;
+    for (int t = 0; t < kCov; ++t) out[(3 + t) * PN + pi] = s_cov[t * N + i];
+    out[9 * PN + pi] = s_w[i];
+    out[10 * PN + pi] = s_wp[i];
+    alive_out[pi] = s_alive[i] != 0;
   }
 }
 
 }  // namespace
 
-// planes_in / planes_out: host arrays of the 11 device plane pointers
-// (mean x, y, d; cov 00 01 02 11 12 22; w; w_prev), each [P, N] f32.
-extern "C" int merge3d_launch(int P, int N, float t2, float infl,
-                              int max_passes, void* const* planes_in,
-                              const void* alive, void* const* planes_out,
-                              void* alive_out, void* stream) {
-  Planes in, out;
-  for (int k = 0; k < kPlanes; ++k) {
-    in.p[k] = static_cast<float*>(planes_in[k]);
-    out.p[k] = static_cast<float*>(planes_out[k]);
-  }
-  const int threads = (N + 31) / 32 * 32;
-  const size_t smem = static_cast<size_t>(N) * ((kPlanes + 6) * sizeof(float) +
-                                                3 * sizeof(int));
+// threads (a multiple of 32, at least N) and smem come from the wrapper's
+// launch_plan
+extern "C" int merge3d_launch(int P, int N, int threads, int smem, float t2,
+                              float infl, int max_passes, const void* mean,
+                              const void* cov, const void* w, const void* wp,
+                              const void* alive, void* out, void* alive_out,
+                              void* stream) {
+  if (threads < N || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        merge3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        merge3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   merge3d_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      t2, infl, max_passes, N, in, static_cast<const bool*>(alive), out,
-      static_cast<bool*>(alive_out));
+      t2, infl, max_passes, N, static_cast<const float*>(mean),
+      static_cast<const float*>(cov), static_cast<const float*>(w),
+      static_cast<const float*>(wp), static_cast<const bool*>(alive),
+      static_cast<float*>(out), static_cast<bool*>(alive_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@ kernel wrapper and its plain PyTorch twin.
 
 Port of the JAX package's Pallas kernel ``ops/pallas/merge3d.py``.  The
 kernel (``csrc/merge3d.cu``) runs the whole pass loop per particle in one
-CTA; the twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`, which is
+CTA, its pair search the gate bit mask of ``csrc/merge_bitmask.cuh``; the
+twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`, which is
 D-generic.
 
 :func:`merge3d` launches the kernel for CUDA tensors and runs the twin for
@@ -13,6 +14,7 @@ CPU tensors; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,7 +23,10 @@ from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops.kernels import build
 
 MAX_SLOTS = 1024  # one thread per slot
-N_PLANES = 11     # 3 mean, 6 packed cov, w, w_prev
+# 32 warps for the gate rows: at Victoria Park's P=100 one CTA an SM fits
+# every particle in one wave, and 32 warps ran the kernel ~8% faster
+# than 16 on an H100 (PERF.md, section 6)
+THREADS = 1024
 
 # kernel launches made by merge3d (the twin does not count)
 launches = 0
@@ -33,21 +38,36 @@ def merge3d_plain(gm: GMState, threshold, f_inflation,
     return gm_ops.merge_fixpoint(gm, threshold, f_inflation, max_passes)
 
 
+class LaunchPlan(NamedTuple):
+    threads: int   # a multiple of 32, at least N
+    smem: int      # dynamic shared memory bytes
+
+
+def launch_plan(P: int, N: int) -> LaunchPlan:
+    """The kernel's launch configuration, one CTA per particle of 32
+    warps, one thread per slot.  Shared memory holds
+    19 slot planes (9 of gate fields, 6 of covariances, w, w_prev, alive
+    and the claims), the gate bit mask (N rows of ceil(N / 32) words) and
+    the safe-absorber words, as ``csrc/merge3d.cu`` lays it out.  Raises
+    ``ValueError`` for a shape the kernel does not take."""
+    if P < 1 or not 1 <= N <= MAX_SLOTS:
+        raise ValueError(f"merge3d: no launch for P={P}, N={N} "
+                         f"(1 <= N <= {MAX_SLOTS})")
+    words = -(-N // 32)
+    smem = 4 * (19 * N + N * words + words)
+    if smem > build.MAX_SMEM:
+        raise ValueError(f"merge3d: N={N} needs {smem} B of shared memory")
+    return LaunchPlan(THREADS, smem)
+
+
 def _lib():
     lib = build.load("merge3d")
     if lib.merge3d_launch.argtypes is None:
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        lib.merge3d_launch.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ptrs, ctypes.c_void_p, ptrs, ctypes.c_void_p,
-            ctypes.c_void_p]
+        lib.merge3d_launch.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 8)
         lib.merge3d_launch.restype = ctypes.c_int
     return lib
-
-
-def _planes(gm: GMState):
-    return [gm.mean[k] for k in range(3)] + [gm.cov[k] for k in range(6)] \
-        + [gm.w, gm.w_prev]
 
 
 def merge3d(gm: GMState, threshold, f_inflation,
@@ -61,26 +81,24 @@ def merge3d(gm: GMState, threshold, f_inflation,
         return merge3d_plain(gm, threshold, f_inflation, max_passes)
     global launches
     P, N = gm.w.shape
-    if N > MAX_SLOTS:
-        raise ValueError(f"merge3d: N={N} > {MAX_SLOTS} slots")
+    plan = launch_plan(P, N)
     dev = gm.w.device
-    gm = GMState(
-        mean=build.checked(gm.mean, torch.float32, dev, (3, P, N)),
-        cov=build.checked(gm.cov, torch.float32, dev, (6, P, N)),
-        w=build.checked(gm.w, torch.float32, dev, (P, N)),
-        w_prev=build.checked(gm.w_prev, torch.float32, dev, (P, N)),
-        alive=build.checked(gm.alive, torch.bool, dev, (P, N)))
-    out = GMState(mean=torch.empty_like(gm.mean),
-                  cov=torch.empty_like(gm.cov), w=torch.empty_like(gm.w),
-                  w_prev=torch.empty_like(gm.w_prev),
-                  alive=torch.empty_like(gm.alive))
-    vec = ctypes.c_void_p * N_PLANES
+    mean = build.checked(gm.mean, torch.float32, dev, (3, P, N))
+    cov = build.checked(gm.cov, torch.float32, dev, (6, P, N))
+    w = build.checked(gm.w, torch.float32, dev, (P, N))
+    wp = build.checked(gm.w_prev, torch.float32, dev, (P, N))
+    alive = build.checked(gm.alive, torch.bool, dev, (P, N))
+    # the float outputs in one buffer: mean x/y/d, cov 00/01/02/11/12/22,
+    # w, w_prev
+    out = torch.empty((11, P, N), dtype=torch.float32, device=dev)
+    alive_o = torch.empty_like(alive)
     err = _lib().merge3d_launch(
-        P, N, float(threshold) * float(threshold), float(f_inflation),
-        int(max_passes), vec(*(t.data_ptr() for t in _planes(gm))),
-        gm.alive.data_ptr(), vec(*(t.data_ptr() for t in _planes(out))),
-        out.alive.data_ptr(), build.stream_of(gm.w))
+        P, N, *plan, float(threshold) * float(threshold), float(f_inflation),
+        int(max_passes),
+        *(t.data_ptr() for t in (mean, cov, w, wp, alive, out, alive_o)),
+        build.stream_of(w))
     if err != 0:
         raise RuntimeError(f"merge3d launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return GMState(mean=out[0:3], cov=out[3:9], w=out[9], w_prev=out[10],
+                   alive=alive_o)

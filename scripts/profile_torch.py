@@ -11,7 +11,8 @@ last ``length`` run under ``torch.profiler``, each filter phase inside a
 ``record_function`` range (births, predict, map update, importance, merge,
 prune, resample; ``update`` spans the last five).  On the replay the births
 run inside ``predict``, so its range includes theirs.  Prints the card's
-name and power limit, one JSON line for the whole run and one for the
+name and power limit, one JSON line for the whole run (on the VP path with
+``merge3d``'s launches beside the frames with measurements) and one for the
 window: host and device ms per frame for each phase, the device's busy time
 and idle share, kernel launches per frame, the kernels that take the most
 device time, and the device time of the port's own CUDA kernels.
@@ -44,6 +45,7 @@ from rfs_slam_tpu_torch.io import victoria_park as vp_io  # noqa: E402
 from rfs_slam_tpu_torch.io import vp_synth  # noqa: E402
 from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig  # noqa: E402
 from rfs_slam_tpu_torch.ops import gm as gm_ops  # noqa: E402
+from rfs_slam_tpu_torch.ops.kernels import merge3d  # noqa: E402
 
 PHASES = ("births", "predict", "map_update", "importance", "merge", "prune",
           "resample", "update")
@@ -89,10 +91,13 @@ def vp_path(args, dev):
     frames = app.head(stream, args.frames)
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    merge3d.launches = 0
     (state, outs), wall = timed(lambda: app.run(filt, icov, frames, gen))
     rmse, dr = app.trajectory_rmse(frames, outs)
     record = {
         "run": "victoria_park synthetic", "frames": len(frames.t),
+        "frames_with_measurements": int(frames.z_mask.any(axis=1).sum()),
+        "merge3d_launches": merge3d.launches,
         "wall_s": wall, "frames_per_s": len(frames.t) / wall,
         "rmse_m": rmse, "dead_reckoning_rmse_m": dr,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),

@@ -1,8 +1,9 @@
 """The merge3d twin (rfs_slam_tpu_torch.ops.gm.merge on D=3 CPU tensors)
 against the JAX package: the pure-JAX merge (XLA) and the Pallas merge3d in
 interpret mode, at P=3, N=128, with the float tolerances of
-tests/test_pallas_merge3d.py; the CUDA kernel's alive bound, mass
-conservation, the no-pair case, zero-weight pairs, and the dispatch."""
+tests/test_pallas_merge3d.py; gated chains across 32-slot words, the CUDA
+kernel's alive bound and launch plan, mass conservation, the no-pair case,
+zero-weight pairs, and the dispatch."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -66,6 +67,45 @@ def test_merge3d_twin_matches_jax_merge_and_pallas(rng, n_alive):
     for want in (ref, pal):
         assert_merged_close(out, want)
     assert out.alive.sum() < n_alive * 3       # merges happened
+
+
+def test_merge3d_twin_chains_across_words_match_jax_merge(rng):
+    """Gated chains across 32-slot words (slots 30-34 and 62-66, 0.25
+    apart under a covariance of 0.04: neighbours gated, slots two apart
+    not) among far-apart slots, 100 of 128 alive: the twin against the
+    XLA merge; over three passes each chain of five ends as two slots."""
+    d = random_gm3_np(rng, n_alive=100, spread=40.0)
+    d["cov"] = np.zeros((6, 3, 128), np.float32)
+    d["cov"][[0, 3, 5]] = 0.04
+    d["w"] = np.tile(np.linspace(1.0, 0.2, 128, dtype=np.float32), (3, 1))
+    d["w_prev"] = d["w"] * 0.5
+    d["mean"][2] = 0.5
+    for s0 in (30, 62):
+        d["mean"][0, :, s0:s0 + 5] = 0.25 * np.arange(5) + s0
+        d["mean"][1, :, s0:s0 + 5] = 0.0
+    out = gm_ops.merge(port_gm(d), 1.5, 1.5)
+    assert_merged_close(out, jgm.merge(jax_gm(d), threshold=1.5,
+                                       f_inflation=1.5))
+    for s0 in (30, 62):
+        assert out.alive[:, s0:s0 + 5].sum(dim=1).tolist() == [2, 2, 2]
+
+
+def test_merge3d_launch_plan_fits_every_size():
+    """Every N up to MAX_SLOTS launches within Hopper's limits, with one
+    thread per slot; at N=512 the layout is 19 slot planes, a 512 x 16
+    word mask and 16 safe words."""
+    for N in range(1, merge3d_mod.MAX_SLOTS + 1):
+        threads, smem = merge3d_mod.launch_plan(100, N)
+        assert threads % 32 == 0 and N <= threads <= 1024
+        assert smem <= 232_448
+    assert merge3d_mod.launch_plan(100, 512) == (
+        1024, 4 * (19 * 512 + 512 * 16 + 16))
+
+
+@pytest.mark.parametrize("P,N", [(100, 1025), (100, 0), (0, 512)])
+def test_merge3d_launch_plan_rejects(P, N):
+    with pytest.raises(ValueError):
+        merge3d_mod.launch_plan(P, N)
 
 
 @pytest.mark.parametrize("n_alive", [17, 40, 77])

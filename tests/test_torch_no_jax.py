@@ -43,7 +43,7 @@ SCRIPT = textwrap.dedent("""
         vp_synth.write(d, seed=0, n_frames=3, scans=True)
         vfilt, icov, ack = vp_app.build(
             XmlConfig(vp_synth.write_config(d + "/config.xml")),
-            map_capacity=32, n_particles=4)
+            map_capacity=32, n_particles=4, device=torch.device("cpu"))
         frames = vp_io.load(d, z_capacity=24, ackerman=ack)
     _, outs = vp_app.run(vfilt, icov, frames, torch.Generator().manual_seed(0))
     assert outs["pose"].shape == (3, 4, 3)

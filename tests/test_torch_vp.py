@@ -48,7 +48,7 @@ def stream(tmp_path_factory):
     jfilt, jicov, ack = japp.build(JXmlConfig(cfg_path), z_capacity=24,
                                    map_capacity=M, n_particles=P)
     filt, icov, _ = app.build(XmlConfig(cfg_path), map_capacity=M,
-                              n_particles=P)
+                              n_particles=P, device=torch.device("cpu"))
     return dict(dir=d, cfg=cfg_path, jfilt=jfilt, jicov=jicov, filt=filt,
                 icov=icov, ack=ack,
                 frames=vp_io.load(str(d), z_capacity=24, ackerman=ack))
@@ -498,7 +498,8 @@ def test_update_at_origin_keeps_planes_finite(stream):
     finite, births finite with Pd > 0, and a second update must lift a
     re-detected landmark above the birth weight."""
     cfg = XmlConfig(stream["cfg"])
-    filt, _, _ = app.build(cfg, z_capacity=8, map_capacity=32, n_particles=2)
+    filt, _, _ = app.build(cfg, z_capacity=8, map_capacity=32, n_particles=2,
+                           device=torch.device("cpu"))
     state = filt.init_state(torch.zeros(3), dz=3, d=3)
     z = torch.tensor([[20.46, 0.886, 0.354], [29.60, 1.021, 0.257],
                       [12.74, 1.353, 0.111]] + [[0.0, 0.0, 0.0]] * 5)
@@ -554,3 +555,23 @@ def test_app_runs_and_writes_logs(stream, tmp_path):
               "--device", "cpu", "--logdir", str(tmp_path)])
     for name in ("particlePose.dat", "landmarkEst.dat", "trajectory.dat"):
         assert (tmp_path / name).stat().st_size > 0
+
+
+def test_build_runs_on_the_card_unless_asked_for_the_cpu(stream,
+                                                         monkeypatch):
+    """build() with no device targets CUDA: on a torch without CUDA it
+    raises rather than return CPU tensors; with the CPU asked for, every
+    tensor of the filter lies on the CPU."""
+    cfg = XmlConfig(stream["cfg"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        app.build(cfg, map_capacity=32, n_particles=2)
+    filt, icov, _ = app.build(cfg, map_capacity=32, n_particles=2,
+                              device=torch.device("cpu"))
+    # the filter's tensors and those of its models, one level down
+    parts = list(vars(filt).values())
+    for part in list(parts):
+        parts += list(getattr(part, "__dict__", {}).values())
+    tensors = [icov] + [t for t in parts if isinstance(t, torch.Tensor)]
+    assert len(tensors) > 5
+    assert {t.device.type for t in tensors} == {"cpu"}
