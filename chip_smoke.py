@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RB-PHD SLAM paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's SLAM paths once on one NVIDIA GPU: RB-PHD (the
+2-D replay, Victoria Park), FastSLAM 1.0 and MH-FastSLAM.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. print the card's name and power limit;
-2. build the three CUDA kernels from ``rfs_slam_tpu_torch/csrc``, one nvcc
+2. build the four CUDA kernels from ``rfs_slam_tpu_torch/csrc``, one nvcc
    each, all started together, and print each ptxas report;
 3. ``map_update2d``: kernel against its plain twin at the bench shape
    (P=200, M=128, Zc=40) on a mid-run state of the ``native/bl_dump``
@@ -34,6 +35,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    state 5c ends in, with its alive slots per particle, passes and merged
    pairs;
 5e. 200 frames of a stream with lidar scans (the scan-dependent Pd);
+7. FastSLAM 1.0 through ``fastslam2dsim.run``'s step loop at full width
+   (P=200, M=128, NMZ=32, candidate capacity 16; the stand-in
+   ``fastslam2dSim.xml`` of ``io/sim2d_xml.py``) on
+   ``sim2d.generate(traj_seed=1, noise_seed=1)``, all 3,000 steps, with
+   torch's sync debug mode raising on any read-back inside the loop:
+   steps/s, the median best-particle position error over steps >= 150
+   beside dead reckoning's, which it must beat; the ``hungarian`` kernel
+   launches once per update with measurements; then generator seeds 1-15
+   (the same run, other draws, in three worker processes), which must
+   beat dead reckoning too, and the median of the 16 errors is held to a
+   divergence bound set from the JAX package's runs;
+8. MH-FastSLAM the same way (H=3, P=200 live of P_cap=600, child cap 6,
+   lane budget 200) over the first 2,000 steps (the depth cut), four
+   launches an update (the gated root, Murty's root and two waves), with
+   seeds 1-3 beside seed 0 for its bound; then one more update with the
+   kernel's inputs recorded;
+9. ``hungarian``: kernel against its plain twin, ``row_to_col`` equal and
+   ``u``, ``v``, ``total`` equal to the bit, on random batches at (B, n) =
+   (200, 32), (600, 32), (1200, 32), the DA tables of step 1,500 of phase
+   7, the matrices of phase 8's recorded update (the Murty waves' with
+   their NEG bans), all-equal matrices, a NEG row and column, n = 1, 33, 64
+   and 128; timed on the DA tables, its bound from the twin's trip counts;
+10. ``batchsim.run_one`` on the card, one 300-step cell of each filter kind
+   (clutter 1e-3, measurement capacity 48: NMZ 52): finite errors and COLA;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -50,11 +75,15 @@ the contract line ``{"ok": true, "device": {...}}`` last.  Usage:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,6 +104,28 @@ VP_SCAN_FRAMES = 200
 # track, 14.9 and 28.1 m on two that lost it; dead reckoning 5.47 m.  The
 # bound is the largest RMSE of a run that held the track, rounded up.
 VP_DIVERGENCE_BOUND_M = 4.0
+FS_STEPS = 3000            # FastSLAM 1.0: the whole run
+MH_STEPS = 2000            # MH-FastSLAM: the depth cut (of 3,000)
+# Divergence bounds from the JAX package on the same data and config on the
+# CPU at P=200 (scripts/fastslam2d_jax_err.py; PERF.md, section 6).  One run
+# is one draw of a chaotic process, so each bound holds the median of the
+# main path's run (generator seed 0) and more seeds, and is the largest
+# median of JAX's keys in groups of as many, rounded up at its first
+# significant digit.  FastSLAM 1.0: keys 0-47 in groups of 16, medians
+# 0.124, 0.137, 0.166 m (a 4-seed median fails JAX's own keys 10% of the
+# time at 0.2 m; a 16-seed one 1.6%).  MH-FastSLAM over 2,000 steps: keys
+# 0-3, median 0.154 m.
+FS_DIVERGENCE_BOUND_M = 0.2
+MH_DIVERGENCE_BOUND_M = 0.2
+FS_BOUND_SEEDS = tuple(range(1, 16))  # beside the main path's seed 0
+MH_BOUND_SEEDS = (1, 2, 3)
+SEED_WORKERS = 3           # processes running the bound's seeds
+FS_MID_STEP = 1500         # the DA tables checked and timed
+# f32 operations a search trip needs on each column: an unused one its
+# reduced cost (2), its compare with minv (1), the argmin (1) and minv's
+# step (1); a used one v's step (1) and its row's u (1)
+HUNGARIAN_FLOP_UNUSED = 5
+HUNGARIAN_FLOP_USED = 2
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -199,12 +250,12 @@ def close(name, got, want, rtol, atol, mask=None):
     return float(np.max(np.abs(got - want), initial=0.0))
 
 
-def midrun(torch, app, filt, gen, dt):
+def midrun(torch, app, loop, filt, gen, dt):
     """The bench filter after MIDRUN_STEPS steps of the bl_dump replay,
     predicted to the next step, with that step's measurements."""
     _, inputs = app.load_bl_dump(BL_DUMP, steps=MIDRUN_STEPS + 2)
     head = tuple(a[:MIDRUN_STEPS] for a in inputs)
-    state, _ = app.run(filt, head, gen, dt)
+    state, _ = loop.run(filt, head, gen, dt)
     dev = gen.device
     odo, z, z_mask = (torch.as_tensor(a[MIDRUN_STEPS], device=dev)
                       for a in inputs[:3])
@@ -531,13 +582,232 @@ def vp_finite(torch, state, outs):
             and bool(torch.isfinite(state.gm.cov[:, alive]).all()))
 
 
-def timed_run(torch, app, filt, inputs, seed, dt, dev):
+def timed_run(torch, loop, filt, inputs, seed, dt, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, best = app.run(filt, inputs, gen, dt)
+    state, best = loop.run(filt, inputs, gen, dt)
     torch.cuda.synchronize()
     return state, best, time.perf_counter() - t0
+
+
+def fastslam_setup(kind, steps, dev):
+    """The FastSLAM filter of ``kind`` (the stand-in config of
+    ``io/sim2d_xml.py``) on ``dev``, with ``sim2d.generate(traj_seed=1,
+    noise_seed=1)`` and its first ``steps`` steps' inputs: ``(filter,
+    sim config, data, inputs)``."""
+    from rfs_slam_tpu_torch.apps import fastslam2dsim as fs_app
+    from rfs_slam_tpu_torch.apps import sim2d_common as loop
+    from rfs_slam_tpu_torch.io import sim2d, sim2d_xml
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    # a directory of its own: the seed workers run this beside each other
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        cfg = XmlConfig(sim2d_xml.write_config(
+            os.path.join(d, f"{kind}2dSim.xml"), kind))
+    sim_cfg = load_sim2d(cfg)
+    data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1)
+    zc = max(data.z.shape[1], 4)
+    filt = fs_app.build_filter_from_xml(cfg, sim_cfg, z_capacity=zc,
+                                        device=dev)
+    return filt, sim_cfg, data, loop.sim_inputs(data, steps=steps,
+                                                z_capacity=zc)
+
+
+def seed_worker(kind, steps, seeds, device):
+    """A worker process's share of the divergence bound's seeds: the run of
+    :func:`fastslam_setup` for each generator seed, its median position
+    error over steps >= 150."""
+    import torch
+    from rfs_slam_tpu_torch.apps import sim2d_common as loop
+
+    dev = torch.device(device)
+    filt, sim_cfg, data, inputs = fastslam_setup(kind, steps, dev)
+    n = len(inputs[0])
+    return loop.seed_errors(filt, inputs, data.gt_pose[1:n + 1], sim_cfg.dt,
+                            seeds, dev)
+
+
+def fastslam_run(torch, loop, hk, kind, steps, dev):
+    """One FastSLAM run of :func:`fastslam_setup`, the step loop under
+    torch's sync debug mode (a read-back inside it raises), then the
+    divergence bound's other seeds in :data:`SEED_WORKERS` processes.
+    Returns ``(filter, final state, device inputs, generator, the DA
+    tables of FS_MID_STEP (or None), a record)``."""
+    filt, sim_cfg, data, inputs = fastslam_setup(kind, steps, dev)
+    din = loop.device_inputs(inputs, dev)
+    n = len(din[-1])
+    best = torch.empty((n, 3), device=dev)
+    mid = {}
+
+    def record(k, state):
+        b = torch.argmax(state.particles.log_w).view(1)
+        best[k] = state.particles.pose.index_select(0, b)[0]
+        if k == FS_MID_STEP - 1 and k + 1 < n:
+            mid["tables"] = filt._da_table(state.particles.pose, state.gm,
+                                           din[1][k + 1], din[2][k + 1],
+                                           filt.meas)[0]
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = loop.steps(filt, din, gen, sim_cfg.dt, record)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hk.launches
+    c = filt.cfg
+    n_upd = int(din[-1].sum())
+    per_update = (1 if c.max_hypotheses == 1
+                  else c.max_hypotheses + 1 if c.murty_lane_budget is not None
+                  and c.murty_lane_budget < filt.p_cap else c.max_hypotheses)
+    if launches != per_update * n_upd:
+        raise AssertionError(f"hungarian: {launches} launches on the {kind} "
+                             f"path, {n_upd} updates had measurements")
+    best = best.cpu().numpy()
+    gt = data.gt_pose[1:n + 1]
+    err = loop.median_pose_error(best, gt)
+    dr = loop.median_pose_error(data.dr_pose[1:n + 1], gt)
+    alive = state.gm.alive
+    live = torch.isfinite(state.particles.log_w)
+    finite = (np.isfinite(best).all()
+              and bool(torch.isfinite(state.particles.pose[live]).all())
+              and bool(torch.isfinite(state.gm.w[alive]).all())
+              and bool(torch.isfinite(state.gm.mean[:, alive]).all()))
+    rec = {"path": f"{kind} sim2d traj_seed=1 noise_seed=1",
+           "steps": n, "steps_cut_from": data.gt_pose.shape[0] - 1,
+           "particles": c.n_particles, "particle_axis": filt.p_cap,
+           "hypotheses": c.max_hypotheses, "nmz": c.nmz_capacity,
+           "map_capacity": c.map_capacity, "wall_s": wall,
+           "steps_per_s": n / wall, "median_pose_err_m": err,
+           "dead_reckoning_m": dr, "hungarian_launches": launches,
+           "updates_with_measurements": n_upd, "finite": bool(finite),
+           "live_particles": int(live.sum()),
+           "best_alive": int(alive[int(torch.argmax(
+               state.particles.log_w))].sum())}
+    if not finite:
+        raise AssertionError(f"{kind}: non-finite outputs")
+    # the divergence bound's other draws: the same run, other seeds
+    seeds = FS_BOUND_SEEDS if kind == "fastslam" else MH_BOUND_SEEDS
+    parts = [seeds[i::SEED_WORKERS] for i in range(SEED_WORKERS)]
+    k = len(parts)
+    with concurrent.futures.ProcessPoolExecutor(
+            k, mp_context=multiprocessing.get_context("spawn")) as pool:
+        errs = list(pool.map(seed_worker, [kind] * k, [steps] * k, parts,
+                             [str(dev)] * k))
+    rec["seeds"] = [0] + [s for part in parts for s in part]
+    rec["seed_errors_m"] = [err] + [e for part in errs for e in part]
+    rec["median_of_seeds_m"] = float(np.median(rec["seed_errors_m"]))
+    return filt, state, din, gen, mid.get("tables"), rec
+
+
+def recorded_update(torch, hk, filt, state, din, gen):
+    """The inputs of every ``hungarian`` call of one more update (the MH
+    path: the gated root, Murty's root and its waves)."""
+    k = int(np.flatnonzero(din[-1])[-1])
+    seen = []
+    launch = hk.hungarian_uv
+
+    def spy(cost):
+        seen.append(cost.clone())
+        return launch(cost)
+
+    hk.hungarian_uv = spy
+    try:
+        filt.update(state, din[1][k], din[2][k], gen=gen, has_z=True)
+    finally:
+        hk.hungarian_uv = launch
+    return seen
+
+
+def hungarian_cases(torch, A, fs_tables, mh_inputs, dev):
+    """The inputs ``hungarian`` is held to its twin on."""
+    rng = np.random.default_rng(2)
+
+    def rand(B, n):
+        return torch.as_tensor((rng.normal(size=(B, n, n)) * 3).astype(
+            np.float32), device=dev)
+
+    neg = rand(64, 32)
+    neg[:, 5, :] = A.NEG
+    neg[:, :, 7] = A.NEG
+    names = ("MH gated root", "MH Murty root", "MH wave 1 (NEG bans)",
+             "MH wave 2 (NEG bans)")
+    return ([(f"random B={B}", rand(B, 32)) for B in (200, 600, 1200)]
+            + [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables)]
+            + list(zip(names, mh_inputs))
+            + [("all equal (ties)", torch.ones((64, 32, 32), device=dev)),
+               ("NEG row and column", neg), ("n=1", rand(16, 1)),
+               ("n=33", rand(64, 33)), ("n=64", rand(64, 64)),
+               ("n=128", rand(16, 128))])
+
+
+def check_hungarian(torch, hk, A, cases, fs_tables):
+    """Kernel against twin on every case: row_to_col equal, u / v / total
+    equal to the bit (their max abs error printed); then timed on the DA
+    tables, with the bound from the twin's trips and used columns there."""
+    errs = []
+    for name, cost in cases:
+        k = hk.hungarian_uv(cost)
+        p = A.hungarian_uv_plain(cost)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                                      err_msg=f"row_to_col ({name})")
+        case = [close(f"{f} ({name})", a, b, 0, 0)
+                for f, a, b in zip(("total", "u", "v"), k[1:], p[1:])]
+        errs += case
+        print(f"hungarian: kernel == twin on {name} (B={cost.shape[0]}, "
+              f"n={cost.shape[1]}; max abs error total {case[0]:.3g}, u "
+              f"{case[1]:.3g}, v {case[2]:.3g})", flush=True)
+    ms = cuda_ms(torch, lambda: hk.hungarian_uv(fs_tables))
+    plain_ms = cuda_ms(torch, lambda: A.hungarian_uv_plain(fs_tables), n=5,
+                       warmup=1)
+    call_ms = cuda_ms(torch, lambda: hk.hungarian_uv(fs_tables), queued=False)
+    B, n, _ = fs_tables.shape
+    *out, trips, used = A.hungarian_uv_plain(fs_tables, return_trips=True)
+    n_trips, n_used = int(trips.sum()), int(used.sum())
+    print(json.dumps({"hungarian_timed_on": f"FastSLAM DA tables, step "
+                      f"{FS_MID_STEP}", "B": B, "n": n,
+                      "search_trips": n_trips,
+                      "used_columns_over_trips": n_used,
+                      "trips_per_matrix_max": int(trips.max()),
+                      "device_ms": ms, "twin_ms": plain_ms,
+                      "call_ms": call_ms}), flush=True)
+    out_bytes = nbytes(*out) - nbytes(out[0]) + B * n * 4  # int32 columns
+    return (max(errs), ms, plain_ms, *bound(
+        nbytes(fs_tables) + out_bytes,
+        (n_trips * (n + 1) - n_used) * HUNGARIAN_FLOP_UNUSED
+        + n_used * HUNGARIAN_FLOP_USED))
+
+
+def batchsim_cells(torch, batchsim, kernels, dev):
+    """One 300-step cell of each filter kind through ``run_one``."""
+    from rfs_slam_tpu_torch.io import sim2d_xml
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
+
+    for kind in ("rbphd", "fastslam"):
+        cfg = XmlConfig(sim2d_xml.write_config(
+            os.path.join(HERE, "build", f"batch_{kind}.xml"), kind))
+        sim_cfg = dataclasses.replace(load_sim2d(cfg), timesteps=300, pd=0.9,
+                                      clutter=1e-3)
+        for m in kernels:
+            m.launches = 0
+        mean_err, final_err, map_err, wall = batchsim.run_one(
+            kind, cfg, sim_cfg, traj_seed=0, noise_seed=1, z_capacity=48,
+            n_particles=100, device=dev)
+        rec = {"batchsim": kind, "steps": 299, "particles": 100,
+               "pd": 0.9, "clutter": 1e-3, "mean_tail_err_m": mean_err,
+               "final_err_m": final_err, "map_cola": map_err, "wall_s": wall,
+               "launches": {m.__name__.rsplit(".", 1)[-1]: m.launches
+                            for m in kernels}}
+        print(json.dumps(rec), flush=True)
+        if not np.isfinite([mean_err, final_err, map_err]).all():
+            raise AssertionError(f"batchsim {kind}: non-finite errors")
 
 
 def main(argv=None) -> int:
@@ -552,6 +822,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+    from rfs_slam_tpu_torch.apps import sim2d_common as loop
     from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
     from rfs_slam_tpu_torch.core.state import GMState
     from rfs_slam_tpu_torch.io import sim2d
@@ -562,6 +833,9 @@ def main(argv=None) -> int:
     from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
     from rfs_slam_tpu_torch.ops.kernels import merge2d as mg
     from rfs_slam_tpu_torch.ops.kernels import merge3d as m3
+    from rfs_slam_tpu_torch.apps import batchsim
+    from rfs_slam_tpu_torch.ops import assignment as A
+    from rfs_slam_tpu_torch.ops.kernels import hungarian as hk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -573,7 +847,7 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
 
     # ---- 2. build, one nvcc per kernel, all started together
-    names = ("map_update2d", "merge2d", "merge3d")
+    names = ("map_update2d", "merge2d", "merge3d", "hungarian")
     t0 = time.perf_counter()
     build.load_all(names)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(names)} "
@@ -594,7 +868,7 @@ def main(argv=None) -> int:
 
     # ---- 3-4. kernels against their twins
     gen = torch.Generator(device=dev).manual_seed(0)
-    state, z, z_mask = midrun(torch, app, filt, gen, dt)
+    state, z, z_mask = midrun(torch, app, loop, filt, gen, dt)
     mu_row = check_map_update(torch, mu, filt, state, z, z_mask)
     mg_row = check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask,
                          dev)
@@ -616,7 +890,7 @@ def main(argv=None) -> int:
     gt, inputs = app.load_bl_dump(BL_DUMP)
     n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
     mu.launches = mg.launches = m3.launches = 0
-    final, best, wall = timed_run(torch, app, filt, inputs, 0, dt, dev)
+    final, best, wall = timed_run(torch, loop, filt, inputs, 0, dt, dev)
     launches = {"map_update2d": mu.launches, "merge2d": mg.launches}
     for name, n in launches.items():
         if n != n_updates:
@@ -628,7 +902,7 @@ def main(argv=None) -> int:
             and bool(torch.isfinite(final.gm.w[alive]).all())
             and bool(torch.isfinite(final.gm.mean[:, alive]).all())):
         raise AssertionError("replay produced non-finite outputs")
-    err = app.median_pose_error(best, gt[1:])
+    err = loop.median_pose_error(best, gt[1:])
     steps = len(best)
     print(json.dumps({
         "replay": "native/bl_dump", "steps": steps,
@@ -699,15 +973,47 @@ def main(argv=None) -> int:
         "rmse_m": vp_app.trajectory_rmse(scan_frames, scan_outs)[0]}),
         flush=True)
 
+    # ---- 7-8. FastSLAM 1.0 and MH-FastSLAM through the Hungarian kernel
+    fs_filt, _, _, _, fs_tables, fs_rec = fastslam_run(
+        torch, loop, hk, "fastslam", FS_STEPS, dev)
+    launches["hungarian"] = fs_rec["hungarian_launches"]
+    mh_filt, mh_state, mh_din, mh_gen, _, mh_rec = fastslam_run(
+        torch, loop, hk, "mhfastslam", MH_STEPS, dev)
+    for rec, bound_m in ((fs_rec, FS_DIVERGENCE_BOUND_M),
+                         (mh_rec, MH_DIVERGENCE_BOUND_M)):
+        rec["divergence_bound_m"] = bound_m
+        print(json.dumps(rec), flush=True)
+    mh_inputs = recorded_update(torch, hk, mh_filt, mh_state, mh_din, mh_gen)
+
+    # ---- 9. the Hungarian kernel against its twin
+    hk_row = check_hungarian(
+        torch, hk, A, hungarian_cases(torch, A, fs_tables, mh_inputs, dev),
+        fs_tables)
+
+    # ---- 10. batchsim cells on the card
+    batchsim_cells(torch, batchsim, (mu, mg, m3, hk), dev)
+
+    # the accuracy of phases 7-8 (checked once every phase has printed):
+    # every seed's run below dead reckoning, their median within the bound
+    for rec in (fs_rec, mh_rec):
+        worst, med = max(rec["seed_errors_m"]), rec["median_of_seeds_m"]
+        if not worst < rec["dead_reckoning_m"]:
+            raise AssertionError(f"{rec['path']}: median error {worst} m is "
+                                 f"not below dead reckoning's")
+        if not med <= rec["divergence_bound_m"]:
+            raise AssertionError(f"{rec['path']}: median over seeds "
+                                 f"{rec['seeds']} {med} m > "
+                                 f"{rec['divergence_bound_m']} m")
+
     # ---- 6. the 4-seed simulation median
     if args.gates:
         data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1,
                               z_capacity=app.Z_CAPACITY)
-        sim_in = app.sim_inputs(data)
+        sim_in = loop.sim_inputs(data)
         errs = []
         for seed in (1, 2, 3, 4):
-            _, b, w_s = timed_run(torch, app, filt, sim_in, seed, dt, dev)
-            errs.append(app.median_pose_error(b, data.gt_pose[1:]))
+            _, b, w_s = timed_run(torch, loop, filt, sim_in, seed, dt, dev)
+            errs.append(loop.median_pose_error(b, data.gt_pose[1:]))
             print(f"gates: seed {seed}: {errs[-1]:.4f} m, "
                   f"{len(b) / w_s:.1f} steps/s", flush=True)
         med = float(np.median(errs))
@@ -718,17 +1024,19 @@ def main(argv=None) -> int:
               flush=True)
 
     # no single PyTorch call computes any of these functions: library_ms
-    # stays null
+    # stays null.  The Hungarian replaces no pallas_call: the JAX package
+    # runs its _hungarian_uv as a vmapped while_loop
     kernels = []
-    for name, pallas, row in (
-            ("map_update2d", "map_update2d.py:309", mu_row),
-            ("merge2d", "merge2d.py:194", mg_row),
-            ("merge3d", "merge3d.py:200", m3_row)):
+    for name, jax_fn, row in (
+            ("map_update2d", "ops/pallas/map_update2d.py:309", mu_row),
+            ("merge2d", "ops/pallas/merge2d.py:194", mg_row),
+            ("merge3d", "ops/pallas/merge3d.py:200", m3_row),
+            ("hungarian", "ops/assignment.py:44", hk_row)):
         err, ms, plain_ms, bound_ms, bound_by = row
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"rfs_slam_tpu_torch/csrc/{name}.cu",
-            "replaces": f"rfs_slam_tpu/ops/pallas/{pallas}",
+            "replaces": f"rfs_slam_tpu/{jax_fn}",
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "floor_ms": floor_ms, "library_ms": None})

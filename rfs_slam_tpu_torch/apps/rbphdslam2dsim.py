@@ -1,55 +1,49 @@
-"""RB-PHD SLAM on the 2-D range-bearing simulation: the bench workload.
+"""RB-PHD SLAM on the 2-D range-bearing simulation (port of the JAX
+package's ``apps/rbphdslam2dsim.py``; the reference executable is
+rbphdslam2dSim.cpp).
 
-``build`` wires the configuration of the JAX package's ``bench.py``
+``build_filter`` wires the configuration of the JAX package's ``bench.py``
 (P=200 particles, map capacity 128, measurement capacity 40, the
-rbphdslam2dSim.xml defaults); ``run`` drives one whole run: predict ->
-ground-truth lock for the first 100 steps -> update -> best pose, one
-Python step per timestep with every tensor on the filter's device.
+rbphdslam2dSim.xml defaults); ``build_filter_from_xml`` wires a
+reference-format XML config, with the JAX app's keys and defaults.  The
+step loop and the logs are ``apps/sim2d_common.py``'s.
 
-The reference XML/``.dat`` command line waits for ROADMAP.md Queue 1 #10.
+Usage (the reference's XML is not in the repository;
+``io/sim2d_xml.py`` writes a stand-in)::
+
+    python -m rfs_slam_tpu_torch.apps.rbphdslam2dsim --cfg CFG.xml \
+        [--trajectory N] [--seed N] [--steps N] [--logdir DIR] \
+        [--particles N] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
+from rfs_slam_tpu_torch.apps.sim2d_common import (
+    GT_LOCK_STEPS, device_for, run_logged, sim_inputs, sim_models,
+    write_logs, xml_models)
 from rfs_slam_tpu_torch.filters.rbphd import RBPHDConfig, RBPHDFilter
 from rfs_slam_tpu_torch.io import sim2d
-from rfs_slam_tpu_torch.models.measurement import RangeBearing
-from rfs_slam_tpu_torch.models.motion import Odometry2D, StaticLandmark
+from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates
 
 N_PARTICLES = 200
 T = 3000
 Z_CAPACITY = 40
 MAP_CAPACITY = 128
-GT_LOCK_STEPS = 100
-ERR_FROM_STEP = 150  # pose error is the median over steps >= 150
 
 
 def build_filter(sim_cfg: sim2d.Sim2DConfig, device: torch.device,
                  n_particles: int = N_PARTICLES) -> RBPHDFilter:
     """The filter of bench.py:52-81 on ``device``."""
-    dt = sim_cfg.dt
-
-    def diag(scale, *v):
-        # scaled in float64, then rounded once, as the JAX package does
-        return torch.tensor(np.diag(v) * scale, dtype=torch.float32,
-                            device=device)
-
-    motion = Odometry2D(Q=diag(1.5 * dt * dt, sim_cfg.vardx, sim_cfg.vardy,
-                               sim_cfg.vardz))
-    lmk = StaticLandmark(Q=diag(dt * dt, sim_cfg.varlmx, sim_cfg.varlmy))
-    meas = RangeBearing(
-        R=diag(10.0, sim_cfg.varzr, sim_cfg.varzb),
-        pd_const=sim_cfg.pd, clutter=sim_cfg.clutter,
-        r_max=sim_cfg.range_max, r_min=sim_cfg.range_min,
-        r_buf=sim_cfg.range_buffer,
-    )
+    motion, lmk, meas = sim_models(sim_cfg, device, 1.5, 10.0)
     gates = InnovationGates.range_bearing(range_t=1.0, bearing_t=0.2)
     cfg = RBPHDConfig(
         n_particles=n_particles, map_capacity=MAP_CAPACITY,
@@ -61,14 +55,6 @@ def build_filter(sim_cfg: sim2d.Sim2DConfig, device: torch.device,
         min_updates_before_resample=2, ess_threshold=100.0,
     )
     return RBPHDFilter(motion, lmk, meas, gates, cfg)
-
-
-def sim_inputs(data: sim2d.Sim2DData, steps: int | None = None):
-    """Per-step inputs (odo, z, z_mask, gt, lock) for timesteps 1..T-1."""
-    n = data.gt_pose.shape[0] if steps is None else steps
-    k = np.arange(1, n)
-    return (data.odometry[1:n], data.z[1:n], data.z_mask[1:n],
-            data.gt_pose[1:n], k <= GT_LOCK_STEPS)
 
 
 def load_bl_dump(path: str, steps: int = T, z_capacity: int = Z_CAPACITY):
@@ -90,37 +76,82 @@ def load_bl_dump(path: str, steps: int = T, z_capacity: int = Z_CAPACITY):
     return gt, (odo[1:], z[1:], z_mask[1:], gt[1:], lock)
 
 
-def run(filt: RBPHDFilter, inputs, gen: torch.Generator, dt: float):
-    """One whole run on ``gen``'s device.  Returns ``(final state, best
-    particle pose per step [n, 3] numpy)``; the only device-to-host copy is
-    the pose log at the end."""
-    dev = gen.device
-    odo, z, z_mask, gt, lock = inputs
-    has_z = np.asarray(z_mask).any(axis=1)
+def build_filter_from_xml(cfg: XmlConfig, sim_cfg: sim2d.Sim2DConfig,
+                          z_capacity: int, map_capacity: int = 256,
+                          n_particles: int | None = None,
+                          device: torch.device | None = None) -> RBPHDFilter:
+    """Filter wiring per rbphdslam2dSim.cpp:444-492 (the JAX app's keys and
+    defaults), tensors on ``device``: the card unless the caller asks for
+    the CPU."""
+    device = device_for(device)
+    n_particles = n_particles or cfg.get("filter.nParticles", 200, int)
+    fcfg = RBPHDConfig(
+        n_particles=n_particles, map_capacity=map_capacity,
+        z_capacity=z_capacity, new_capacity=64, birth_capacity=16,
+        eval_capacity=cfg.get("filter.weighting.nEvalPt", 15, int),
+        z_dp_max=10,
+        birth_gaussian_weight=cfg.get("filter.predict.birthGaussianWeight",
+                                      0.01),
+        new_gaussian_md_threshold=cfg.get(
+            "filter.update.GaussianCreateInnovMDThreshold", 0.2),
+        eval_pt_min_weight=cfg.get("filter.weighting.minWeight", 0.75),
+        weighting_md_threshold=cfg.get("filter.weighting.threshold", 3.0),
+        merge_threshold=cfg.get("filter.merge.threshold", 0.5),
+        merge_inflation=cfg.get("filter.merge.covInflationFactor", 1.0),
+        prune_threshold=cfg.get("filter.prune.threshold", 0.01),
+        min_updates_before_resample=cfg.get("filter.resampling.minTimesteps",
+                                            1, int),
+        ess_threshold=cfg.get("filter.resampling.effNParticle",
+                              float(n_particles)),
+        use_cluster_process=cfg.get("filter.weighting.useClusterProcess",
+                                    False, bool))
+    return RBPHDFilter(*xml_models(cfg, sim_cfg, device), fcfg)
 
-    def put(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    odo_d, z_d, gt_d = put(odo), put(z), put(gt)
-    zm_d = put(z_mask, torch.bool)
-    P = filt.cfg.n_particles
-    state = filt.init_state(torch.zeros(3, device=dev))
-    best = torch.empty((len(odo), 3), device=dev)
-    for k in range(len(odo)):
-        state = filt.predict(state, odo_d[k], dt, gen=gen)
-        if lock[k]:
-            pose = gt_d[k].expand(P, 3).contiguous()
-            state = dataclasses.replace(
-                state, particles=dataclasses.replace(state.particles,
-                                                     pose=pose))
-        state = filt.update(state, z_d[k], zm_d[k], gen=gen,
-                            has_z=bool(has_z[k]))
-        best[k] = state.particles.pose[torch.argmax(state.particles.log_w)]
-    return state, best.cpu().numpy()
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--trajectory", type=int, default=0,
+                    help="trajectory random seed (reference --trajectory)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="measurement noise seed (reference --seed)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="override timesteps")
+    ap.add_argument("--logdir", default=None)
+    ap.add_argument("--particles", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "twins)")
+    args = ap.parse_args(argv)
+
+    dev = device_for(args.device)
+    cfg = XmlConfig(args.cfg)
+    sim_cfg = load_sim2d(cfg)
+    if args.steps:
+        sim_cfg = dataclasses.replace(sim_cfg, timesteps=args.steps)
+    data = sim2d.generate(sim_cfg, traj_seed=args.trajectory,
+                          noise_seed=args.seed, z_capacity=None)
+    zc = data.z.shape[1]
+    filt = build_filter_from_xml(cfg, sim_cfg, z_capacity=max(zc, 4),
+                                 n_particles=args.particles, device=dev)
+    print(f"rbphdslam2dsim: T={sim_cfg.timesteps} P={filt.cfg.n_particles} "
+          f"L={sim_cfg.n_landmarks} Zmax={zc} device={dev}")
+    t0 = time.perf_counter()
+    # the filter's generator is seeded 0, as the JAX app's key
+    _, outs = run_logged(filt, sim_inputs(data, z_capacity=max(zc, 4)),
+                         torch.Generator(device=dev).manual_seed(0),
+                         sim_cfg.dt)
+    wall = time.perf_counter() - t0
+    T = sim_cfg.timesteps
+    print(f"done: {T - 1} steps in {wall:.2f}s ({(T - 1) / wall:.1f} "
+          f"timesteps/s)")
+    logdir = args.logdir or cfg.get("logging.logDirPrefix", "data/rbphdslam",
+                                    str)
+    if cfg.get("logging.logResultsToFile", 0, int) or args.logdir:
+        err = write_logs(logdir, args.cfg, data, sim_cfg.dt, outs)
+        print(f"logs -> {logdir}; median best-particle pose err "
+              f"{err:.4f} m")
 
 
-def median_pose_error(best: np.ndarray, gt: np.ndarray) -> float:
-    """Median best-particle position error over steps >= 150 (``best`` and
-    ``gt`` aligned per step)."""
-    err = np.linalg.norm(best[:, :2] - gt[:, :2], axis=1)
-    return float(np.median(err[ERR_FROM_STEP:]))
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,7 @@ TINY = 1e-35
 R2_TINY = 1e-24
 
 TWO_PI = 2.0 * math.pi
+LOG_2PI = 1.8378770664093453
 
 
 def wrap_angle(a: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ convention: phases build new ones with :func:`dataclasses.replace`.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -16,11 +17,12 @@ from rfs_slam_tpu_torch.core import planar
 
 
 def _eye_planes(n_particles, capacity, dim, device, dtype):
-    eye = torch.tensor([1.0 if i == j else 0.0
-                        for i in range(dim) for j in range(i, dim)],
-                       dtype=dtype, device=device)
-    return eye[:, None, None].expand(planar.tri_size(dim), n_particles,
-                                     capacity).contiguous()
+    # filled on the device: a host tensor copied there would wait for the
+    # device's queue (a run's init_state sits inside its step loop)
+    return torch.stack([torch.full((n_particles, capacity),
+                                   1.0 if i == j else 0.0, dtype=dtype,
+                                   device=device)
+                        for i in range(dim) for j in range(i, dim)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,10 +122,20 @@ class ParticleState:
     parent: torch.Tensor
 
     @classmethod
-    def init(cls, n_particles: int, pose0: torch.Tensor) -> "ParticleState":
+    def init(cls, n_particles: int, pose0: torch.Tensor,
+             n_live: int | None = None) -> "ParticleState":
+        """``n_particles`` copies of ``pose0``.  With ``n_live`` (the
+        MH-FastSLAM grow mode, FastSLAM.hpp:335), only the first
+        ``n_live`` slots start live, at weight ``1 / n_live``; the others
+        carry ``-inf``."""
+        log_w = torch.zeros((n_particles,), dtype=pose0.dtype,
+                            device=pose0.device)
+        if n_live is not None and n_live != n_particles:
+            live = torch.arange(n_particles, device=pose0.device) < n_live
+            log_w = torch.where(live, -math.log(float(n_live)),
+                                float("-inf")).to(pose0.dtype)
         return cls(
             pose=pose0.expand(n_particles, pose0.shape[-1]).contiguous(),
-            log_w=torch.zeros((n_particles,), dtype=pose0.dtype,
-                              device=pose0.device),
+            log_w=log_w,
             parent=torch.arange(n_particles, device=pose0.device),
         )

@@ -28,8 +28,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-kernel flags: the merge kernels round every product and sum as their
-# twin does, so their gates decide boundary pairs as the twin decides them
-EXTRA_FLAGS = {"merge2d": ["-fmad=false"], "merge3d": ["-fmad=false"]}
+# twin does, so their gates decide boundary pairs as the twin decides them;
+# the Hungarian's potentials round as its twin's
+EXTRA_FLAGS = {"merge2d": ["-fmad=false"], "merge3d": ["-fmad=false"],
+               "hungarian": ["-fmad=false"]}
 
 # the dynamic shared memory a Hopper block can opt into (227 KB)
 MAX_SMEM = 232_448

@@ -49,3 +49,12 @@ def maybe_resample(u0: torch.Tensor, log_w: torch.Tensor, ess_threshold,
     new_log_w = torch.where(do, torch.full_like(log_w, -math.log(n)),
                             normalize_log_weights(log_w))
     return ancestors, new_log_w, do
+
+
+def gather_particles(tree, ancestors: torch.Tensor):
+    """Gather every per-particle entry of a dict by ancestor index (the
+    resampling map copy, ParticleFilter.hpp:446-479): containers with
+    ``gather_p`` (GMState, BirthCandidates) along their own particle axis,
+    tensors along their leading axis."""
+    return {k: (v.gather_p(ancestors) if hasattr(v, "gather_p")
+                else v.index_select(0, ancestors)) for k, v in tree.items()}

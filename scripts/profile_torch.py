@@ -1,10 +1,18 @@
-"""The port's RB-PHD paths on one NVIDIA GPU: one whole run, then a phase
+"""The port's SLAM paths on one NVIDIA GPU: one whole run, then a phase
 breakdown of a profiled window.
 
 ``--path vp`` (default): the Victoria Park path on the synthetic stream
 (frames/s, trajectory RMSE against its GPS and dead reckoning's).
 ``--path replay``: the bench filter on the ``native/bl_dump`` replay
 (steps/s, median pose error).
+``--path fastslam``: FastSLAM 1.0 (``--hypotheses 1``) or MH-FastSLAM
+(``--hypotheses 3``) at chip_smoke's width on ``sim2d.generate(
+traj_seed=1, noise_seed=1)`` with the stand-in ``fastslam2dSim.xml``
+(steps/s, median pose error beside dead reckoning's, the Hungarian
+kernel's launches); its phases are predict, da_table, assoc (the
+Hungarian or the gated Murty), map_update (the EKF and existence updates of
+the chosen hypotheses), prune, births (the landmark candidates) and
+resample (with the map copy); ``update`` spans them.
 
 The window is a second run of ``start + length`` frames (or steps) whose
 last ``length`` run under ``torch.profiler``, each filter phase inside a
@@ -22,6 +30,8 @@ Usage, from the repository root on a machine with the card::
     python3 scripts/profile_torch.py [--path vp] [--frames 7230]
         [--window 1000:20]
     python3 scripts/profile_torch.py --path replay --window 1000:60
+    python3 scripts/profile_torch.py --path fastslam --hypotheses 3 \
+        --frames 2000 --window 1000:40
 """
 
 import argparse
@@ -38,17 +48,23 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from rfs_slam_tpu_torch.apps import fastslam2dsim as fs_app  # noqa: E402
 from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app2d  # noqa: E402
+from rfs_slam_tpu_torch.apps import sim2d_common as loop  # noqa: E402
 from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as app  # noqa: E402
-from rfs_slam_tpu_torch.io import sim2d  # noqa: E402
+from rfs_slam_tpu_torch.filters import fastslam as fs_filter  # noqa: E402
+from rfs_slam_tpu_torch.io import sim2d, sim2d_xml  # noqa: E402
 from rfs_slam_tpu_torch.io import victoria_park as vp_io  # noqa: E402
 from rfs_slam_tpu_torch.io import vp_synth  # noqa: E402
-from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig  # noqa: E402
+from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d  # noqa: E402
 from rfs_slam_tpu_torch.ops import gm as gm_ops  # noqa: E402
-from rfs_slam_tpu_torch.ops.kernels import merge3d  # noqa: E402
+from rfs_slam_tpu_torch.ops import resample as resample_ops  # noqa: E402
+from rfs_slam_tpu_torch.ops.kernels import hungarian, merge3d  # noqa: E402
 
 PHASES = ("births", "predict", "map_update", "importance", "merge", "prune",
           "resample", "update")
+FS_PHASES = ("predict", "da_table", "assoc", "map_update", "prune", "births",
+             "resample", "update")
 
 
 def ranged(name, fn):
@@ -69,6 +85,22 @@ def instrument(filt):
     filt.update = ranged("update", filt.update)
     gm_ops.merge = ranged("merge", gm_ops.merge)
     gm_ops.prune = ranged("prune", gm_ops.prune)
+
+
+def instrument_fastslam(filt):
+    """The FastSLAM phases in profiler ranges (this process only)."""
+    filt.predict = ranged("predict", filt.predict)
+    filt._da_table = ranged("da_table", filt._da_table)
+    filt._apply_hypothesis = ranged("map_update", filt._apply_hypothesis)
+    filt._prune = ranged("prune", filt._prune)
+    filt._candidates = ranged("births", filt._candidates)
+    filt.update = ranged("update", filt.update)
+    fs_filter.hungarian = ranged("assoc", fs_filter.hungarian)
+    fs_filter.murty_gated = ranged("assoc", fs_filter.murty_gated)
+    for name in ("maybe_resample", "systematic_ancestors",
+                 "gather_particles"):
+        setattr(resample_ops, name,
+                ranged("resample", getattr(resample_ops, name)))
 
 
 def timed(fn):
@@ -127,18 +159,18 @@ def vp_path(args, dev):
 def replay_path(args, dev):
     """The same four for the bench filter on the ``native/bl_dump``
     replay (the window must start after the ground-truth lock)."""
-    if int(args.window.split(":")[0]) < app2d.GT_LOCK_STEPS:
+    if int(args.window.split(":")[0]) < loop.GT_LOCK_STEPS:
         raise SystemExit("--window must start after the ground-truth lock "
-                         f"(step {app2d.GT_LOCK_STEPS})")
+                         f"(step {loop.GT_LOCK_STEPS})")
     dt = sim2d.Sim2DConfig().dt
     filt = app2d.build_filter(sim2d.Sim2DConfig(), dev)
     gt, inputs = app2d.load_bl_dump(os.path.join(ROOT, "native", "bl_dump"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    (state, best), wall = timed(lambda: app2d.run(filt, inputs, gen, dt))
+    (state, best), wall = timed(lambda: loop.run(filt, inputs, gen, dt))
     record = {
         "run": "native/bl_dump replay", "steps": len(best), "wall_s": wall,
         "steps_per_s": len(best) / wall,
-        "median_pose_err_m": app2d.median_pose_error(best, gt[1:]),
+        "median_pose_err_m": loop.median_pose_error(best, gt[1:]),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "final_alive_mean": float(state.gm.alive.sum(dim=1).float().mean())}
 
@@ -150,7 +182,7 @@ def replay_path(args, dev):
 
     def warm(start):
         # the steps before the window, ground-truth lock included
-        return app2d.run(filt, tuple(a[:start] for a in inputs), gen, dt)[0]
+        return loop.run(filt, tuple(a[:start] for a in inputs), gen, dt)[0]
 
     def step(state, k):
         state = filt.predict(state, odo[k], dt, gen=gen)
@@ -159,11 +191,60 @@ def replay_path(args, dev):
     return filt, record, warm, step
 
 
+def fastslam_path(args, dev):
+    """The same four for FastSLAM (``--hypotheses``) on the first
+    ``--frames`` steps of sim2d traj_seed=1, noise_seed=1."""
+    kind = "fastslam" if args.hypotheses == 1 else "mhfastslam"
+    cfg = XmlConfig(sim2d_xml.write_config(
+        os.path.join(ROOT, "build", f"{kind}2dSim.xml"), kind,
+        {"filter.update.maxNDataAssocHypotheses": args.hypotheses}))
+    sim_cfg = load_sim2d(cfg)
+    data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1)
+    zc = max(data.z.shape[1], 4)
+    filt = fs_app.build_filter_from_xml(cfg, sim_cfg, z_capacity=zc,
+                                        device=dev)
+    inputs = loop.sim_inputs(data, steps=args.frames + 1, z_capacity=zc)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hungarian.launches = 0
+    (state, best), wall = timed(lambda: loop.run(filt, inputs, gen,
+                                                 sim_cfg.dt))
+    gt = data.gt_pose[1:len(best) + 1]
+    record = {
+        "run": f"{kind} sim2d traj_seed=1 noise_seed=1", "steps": len(best),
+        "particles": filt.cfg.n_particles, "particle_axis": filt.p_cap,
+        "updates_with_measurements": int(inputs[2].any(axis=1).sum()),
+        "hungarian_launches": hungarian.launches, "wall_s": wall,
+        "steps_per_s": len(best) / wall,
+        "median_pose_err_m": loop.median_pose_error(best, gt),
+        "dead_reckoning_m": loop.median_pose_error(
+            data.dr_pose[1:len(best) + 1], gt),
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    din = loop.device_inputs(inputs, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def warm(start):
+        # the steps before the window, ground-truth lock included
+        return loop.run(filt, tuple(a[:start] for a in inputs), gen,
+                        sim_cfg.dt)[0]
+
+    def step(state, k):
+        state = filt.predict(state, din[0][k], sim_cfg.dt, gen=gen)
+        return filt.update(state, din[1][k], din[2][k], gen=gen,
+                           has_z=bool(din[-1][k]))
+
+    return filt, record, warm, step
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("vp", "replay"), default="vp")
+    ap.add_argument("--path", choices=("vp", "replay", "fastslam"),
+                    default="vp")
     ap.add_argument("--frames", type=int, default=7230,
-                    help="frames of the whole VP run")
+                    help="frames of the whole VP run (steps of the "
+                         "FastSLAM run; at most 2999)")
+    ap.add_argument("--hypotheses", type=int, default=1,
+                    help="FastSLAM's data-association hypotheses (3: "
+                         "MH-FastSLAM)")
     ap.add_argument("--window", default="1000:20", help="START:LENGTH")
     ap.add_argument("--seed", type=int, default=0,
                     help="the VP stream's seed")
@@ -176,13 +257,15 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    filt, record, warm, step = (vp_path if args.path == "vp"
-                                else replay_path)(args, dev)
+    path = {"vp": vp_path, "replay": replay_path,
+            "fastslam": fastslam_path}[args.path]
+    phases = FS_PHASES if args.path == "fastslam" else PHASES
+    filt, record, warm, step = path(args, dev)
     print(json.dumps({**record, "card": card}), flush=True)
 
     # the profiled window
     state = warm(start)
-    instrument(filt)
+    (instrument_fastslam if args.path == "fastslam" else instrument)(filt)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -196,18 +279,33 @@ def main():
     # inside the range's mirror on the device timeline (first to last of
     # its kernels); "device_ms_ops" the same from the host side
     # (FunctionEvent.device_time_total, the range's ops' kernels).  The
-    # mirrors are left out of the busy sum.
+    # mirrors are left out of the busy sum.  A range nested in one of its
+    # own name (a wrapped resample op calling another) counts once.
     events = prof.events()
     dev_t = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events
-               if e.device_type == dev_t and e.name not in PHASES]
+               if e.device_type == dev_t and e.name not in phases]
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == e.name:
+                return True
+            p = p.cpu_parent
+        return False
+
     per = {}
-    for name in PHASES:
-        host = [e for e in events
-                if e.name == name and e.device_type != dev_t]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in events
-                       if e.name == name and e.device_type == dev_t)
+    for name in phases:
+        host = [e for e in events if e.name == name
+                and e.device_type != dev_t and not nested(e)]
+        spans = []
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in events
+                           if e.name == name and e.device_type == dev_t):
+            if spans and a <= spans[-1][1]:      # overlapping: merge
+                spans[-1] = (spans[-1][0], max(spans[-1][1], b))
+            else:
+                spans.append((a, b))
         starts = [a for a, _ in spans]
         inside = 0.0
         for k in kernels:
@@ -229,7 +327,7 @@ def main():
     # the port's own kernels (csrc/*.cu), by the name in their symbol
     ours = {}
     for n, (t, c) in by_name.items():
-        for kernel in ("map_update2d", "merge2d", "merge3d"):
+        for kernel in ("map_update2d", "merge2d", "merge3d", "hungarian"):
             if f"{kernel}_kernel" in n:
                 t0, c0 = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (t0 + t, c0 + c)

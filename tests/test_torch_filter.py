@@ -15,7 +15,7 @@ from rfs_slam_tpu.filters.rbphd import RBPHDFilter as JRBPHDFilter
 from rfs_slam_tpu.ops import resample as jresample
 from rfs_slam_tpu.ops.rfs_likelihood import rfs_log_likelihood as jrfs
 from rfs_slam_tpu_torch import convert
-from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+from rfs_slam_tpu_torch.apps import sim2d_common as loop
 from rfs_slam_tpu_torch.filters.rbphd import LOG_TINY, RBPHDFilter, RBPHDState
 from rfs_slam_tpu_torch.io import sim2d
 from rfs_slam_tpu_torch.ops import resample
@@ -82,8 +82,8 @@ def test_one_step_matches_jax_mid_run(step_pair):
     sim_cfg = sim2d.Sim2DConfig(timesteps=200, n_landmarks=20, n_segments=4)
     data = sim2d.generate(sim_cfg, traj_seed=3, noise_seed=4, z_capacity=24)
     k = 120
-    state, _ = app.run(filt, app.sim_inputs(data, steps=k),
-                       torch.Generator().manual_seed(2), DT)
+    state, _ = loop.run(filt, loop.sim_inputs(data, steps=k),
+                        torch.Generator().manual_seed(2), DT)
     assert bool(state.last_unused.any()) and int(state.gm.alive.sum()) > 50
     jstate = jax_state(convert.to_numpy(state), jax.random.PRNGKey(7))
     got = assert_step_matches(filt, jstep, jstate, data.odometry[k],
@@ -186,8 +186,8 @@ def test_port_short_run_within_jax_bands(short_sim):
     distribution."""
     sim_cfg, data = short_sim
     filt = convert.filter_from_numpy(build_filter(sim_cfg), CPU)
-    state, best = app.run(filt, app.sim_inputs(data),
-                          torch.Generator().manual_seed(0), sim_cfg.dt)
+    state, best = loop.run(filt, loop.sim_inputs(data),
+                           torch.Generator().manual_seed(0), sim_cfg.dt)
     assert np.isfinite(best).all()
     err = np.linalg.norm(best[:, :2] - data.gt_pose[1:, :2], axis=1)
     assert err[99] < 1e-4            # still locked at k=100

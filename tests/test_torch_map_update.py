@@ -16,7 +16,7 @@ from rfs_slam_tpu.ops.pallas.map_update2d import (fused_map_update2d as
                                                   jfused, pack_params as
                                                   jpack_params)
 from rfs_slam_tpu_torch import convert
-from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
+from rfs_slam_tpu_torch.apps import sim2d_common as loop
 from rfs_slam_tpu_torch.filters.rbphd import RBPHDFilter
 from rfs_slam_tpu_torch.io import sim2d
 from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
@@ -35,8 +35,8 @@ def midrun():
     jfilt.cfg = dataclasses.replace(jfilt.cfg, map_capacity=128)
     filt = convert.filter_from_numpy(jfilt, CPU)
     gen = torch.Generator().manual_seed(1)
-    state, _ = app.run(filt, app.sim_inputs(data, steps=46), gen,
-                       sim_cfg.dt)
+    state, _ = loop.run(filt, loop.sim_inputs(data, steps=46), gen,
+                        sim_cfg.dt)
     state = filt.predict(state, t(data.odometry[46], torch.float32),
                          sim_cfg.dt, gen=gen)
     assert int(state.gm.alive.sum()) > 100

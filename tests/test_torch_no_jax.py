@@ -1,11 +1,16 @@
-"""rfs_slam_tpu_torch imports, and runs a 2-D simulation step and three
-synthetic Victoria Park frames, in a process where JAX and the JAX package
-cannot be imported (the GPU machine has no JAX)."""
+"""rfs_slam_tpu_torch imports, and runs a few 2-D simulation steps of
+RB-PHD and MH-FastSLAM and three synthetic Victoria Park frames, in a
+process where JAX and the JAX package cannot be imported (the GPU machine
+has no JAX); the Hungarian kernel's launch plan."""
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
+
+from rfs_slam_tpu_torch.ops.kernels import hungarian
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,17 +30,30 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
 
+    import tempfile
     import torch
     from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
     from rfs_slam_tpu_torch.io import sim2d
     cfg = sim2d.Sim2DConfig(timesteps=8, n_landmarks=5, n_segments=2)
     data = sim2d.generate(cfg, traj_seed=1, noise_seed=1, z_capacity=40)
     filt = app.build_filter(cfg, torch.device("cpu"), n_particles=4)
-    _, best = app.run(filt, app.sim_inputs(data),
-                      torch.Generator().manual_seed(0), cfg.dt)
+    from rfs_slam_tpu_torch.apps import sim2d_common as loop
+    _, best = loop.run(filt, loop.sim_inputs(data),
+                       torch.Generator().manual_seed(0), cfg.dt)
     assert best.shape == (7, 3)
 
-    import tempfile
+    from rfs_slam_tpu_torch.apps import fastslam2dsim as fs_app
+    from rfs_slam_tpu_torch.io import sim2d_xml
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
+    with tempfile.TemporaryDirectory() as d:
+        xcfg = XmlConfig(sim2d_xml.write_config(d + "/mh.xml", "mhfastslam"))
+    fs = fs_app.build_filter_from_xml(xcfg, cfg, z_capacity=40,
+                                      n_particles=2,
+                                      device=torch.device("cpu"))
+    _, outs = loop.run_logged(fs, loop.sim_inputs(data),
+                              torch.Generator().manual_seed(0), cfg.dt)
+    assert outs["pose"].shape == (7, 6, 3)
+
     from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
     from rfs_slam_tpu_torch.io import victoria_park as vp_io, vp_synth
     from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
@@ -61,3 +79,17 @@ def test_port_imports_and_steps_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (200, 32), (1200, 32), (8, 33),
+                                 (4, 128), (2, 1024)])
+def test_hungarian_launch_plan_accepts(B, n):
+    threads, smem = hungarian.launch_plan(B, n)
+    assert threads == 32
+    assert smem == 25 * (n + 1) + 4 * n and smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("B,n", [(0, 32), (8, 0), (8, 1025)])
+def test_hungarian_launch_plan_refuses(B, n):
+    with pytest.raises(ValueError):
+        hungarian.launch_plan(B, n)

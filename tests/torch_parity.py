@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import torch
 
 from rfs_slam_tpu.core.state import BirthCandidates, GMState, ParticleState
+from rfs_slam_tpu.filters.fastslam import FastSLAMState
 from rfs_slam_tpu.filters.rbphd import RBPHDState
 from rfs_slam_tpu_torch import convert
 
@@ -33,10 +34,7 @@ def jax_state(d, key):
     """A JAX RBPHDState from :func:`convert.to_numpy` of a port state."""
     p = d["particles"]
     return RBPHDState(
-        particles=ParticleState(pose=jnp.asarray(p["pose"]),
-                                log_w=jnp.asarray(p["log_w"]),
-                                parent=jnp.asarray(p["parent"], jnp.int32),
-                                key=key),
+        particles=jax_particles(p, key),
         gm=jax_gm(d["gm"]),
         birth=BirthCandidates(**{k: jnp.asarray(v)
                                  for k, v in d["birth"].items()}),
@@ -46,6 +44,36 @@ def jax_state(d, key):
         n_updates=jnp.asarray(d["n_updates"], jnp.int32),
         n_meas=jnp.asarray(d["n_meas"], jnp.int32),
     )
+
+
+def jax_particles(p, key):
+    return ParticleState(pose=jnp.asarray(p["pose"]),
+                         log_w=jnp.asarray(p["log_w"]),
+                         parent=jnp.asarray(p["parent"], jnp.int32), key=key)
+
+
+def jax_fastslam_state(d, key):
+    """A JAX FastSLAMState from :func:`convert.to_numpy` of a port state."""
+    return FastSLAMState(
+        particles=jax_particles(d["particles"], key), gm=jax_gm(d["gm"]),
+        cand=BirthCandidates(**{k: jnp.asarray(v)
+                                for k, v in d["cand"].items()}),
+        n_in_fov=jnp.asarray(d["n_in_fov"], jnp.int32),
+        n_updates=jnp.asarray(d["n_updates"], jnp.int32),
+        n_meas=jnp.asarray(d["n_meas"], jnp.int32))
+
+
+def fastslam_step_draws(key, n_particles):
+    """The motion draws [P, 3] and the resampling offset of one JAX
+    FastSLAM predict + update from the particles' ``key``: predict splits
+    ``key, k_prop`` (fastslam.py:190-191), each particle ``_, k_add`` of
+    ``split(k_prop, P)``; the update's resample splits ``_, k_rs`` of the
+    post-predict key (:525 in grow mode, :668 otherwise)."""
+    key2, k_prop = jax.random.split(key)
+    noise = jax.vmap(lambda k: jax.random.normal(
+        jax.random.split(k)[1], (3,), jnp.float32))(
+            jax.random.split(k_prop, n_particles))
+    return np.asarray(noise), resample_offset(key2)
 
 
 def port_state(state, rbphd_state_cls):
