@@ -55,8 +55,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``u``, ``v``, ``total`` equal to the bit, on random batches at (B, n) =
    (200, 32), (600, 32), (1200, 32), the DA tables of step 1,500 of phase
    7, the matrices of phase 8's recorded update (the Murty waves' with
-   their NEG bans), all-equal matrices, a NEG row and column, n = 1, 33, 64
-   and 128; timed on the DA tables, its bound from the twin's trip counts;
+   their NEG bans), all-equal matrices, a NEG row and column, -0.0 and
+   +0.0 tied in rows, B=1, rows and columns below -INF, n = 1, 31, 33, 52
+   (batchsim's NMZ), 63, 64, 128 and 200, and n = 241, 300 and 1024, whose
+   matrices do not fit shared memory (every instantiation of the kernel);
+   timed on the DA tables, its bound from the twin's trip counts, and the
+   time of one search trip of the slowest matrix (``ns_per_trip``);
 10. ``batchsim.run_one`` on the card, one 300-step cell of each filter kind
    (clutter 1e-3, measurement capacity 48: NMZ 52): finite errors and COLA;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
@@ -241,13 +245,16 @@ def merge_bound(gm_ops, gm, out, threshold, f_inflation, inv_flop,
 
 def close(name, got, want, rtol, atol, mask=None):
     """Assert ``got`` ~ ``want`` (numpy allclose semantics); returns the max
-    absolute error."""
+    absolute error (0 where the two are equal, infinities included)."""
     got = got.detach().cpu().numpy()
     want = want.detach().cpu().numpy()
     if mask is not None:
         got, want = got[..., mask], want[..., mask]
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
-    return float(np.max(np.abs(got - want), initial=0.0))
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    with np.errstate(invalid="ignore"):   # inf - inf where both are inf
+        diff = np.where(same, 0.0, got - want)
+    return float(np.max(np.abs(diff), initial=0.0))
 
 
 def midrun(torch, app, loop, filt, gen, dt):
@@ -629,6 +636,15 @@ def seed_worker(kind, steps, seeds, device):
                             seeds, dev)
 
 
+def keep_mid_tables(filt, din, k, state, mid):
+    """A step loop's record: after step ``k`` = FS_MID_STEP - 1, keep in
+    ``mid["tables"]`` the DA tables of the next update."""
+    if k == FS_MID_STEP - 1 and k + 1 < len(din[-1]):
+        mid["tables"] = filt._da_table(state.particles.pose, state.gm,
+                                       din[1][k + 1], din[2][k + 1],
+                                       filt.meas)[0]
+
+
 def fastslam_run(torch, loop, hk, kind, steps, dev):
     """One FastSLAM run of :func:`fastslam_setup`, the step loop under
     torch's sync debug mode (a read-back inside it raises), then the
@@ -644,10 +660,7 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
     def record(k, state):
         b = torch.argmax(state.particles.log_w).view(1)
         best[k] = state.particles.pose.index_select(0, b)[0]
-        if k == FS_MID_STEP - 1 and k + 1 < n:
-            mid["tables"] = filt._da_table(state.particles.pose, state.gm,
-                                           din[1][k + 1], din[2][k + 1],
-                                           filt.meas)[0]
+        keep_mid_tables(filt, din, k, state, mid)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     hk.launches = 0
@@ -736,15 +749,33 @@ def hungarian_cases(torch, A, fs_tables, mh_inputs, dev):
     neg = rand(64, 32)
     neg[:, 5, :] = A.NEG
     neg[:, :, 7] = A.NEG
+    # each row's maximum a 0.0 or -0.0 at several columns, tied under <
+    zeros = -rand(64, 32).abs() - 0.5
+    hit = torch.as_tensor(rng.random((64, 32, 32)) < 0.2, device=dev)
+    sign = torch.as_tensor(rng.random((64, 32, 32)) < 0.5, device=dev)
+    zeros[hit] = torch.where(sign, 0.0, -0.0)[hit]
+    # rows and columns below -INF: column 0 wins the argmin with delta INF
+    beyond = rand(4, 33)
+    beyond[0, 1, :] = -3e38
+    beyond[1] = -3e38
+    beyond[2, :, 0] = -3e38
+    beyond[3, 0, :2] = -3e38
     names = ("MH gated root", "MH Murty root", "MH wave 1 (NEG bans)",
              "MH wave 2 (NEG bans)")
     return ([(f"random B={B}", rand(B, 32)) for B in (200, 600, 1200)]
             + [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables)]
             + list(zip(names, mh_inputs))
             + [("all equal (ties)", torch.ones((64, 32, 32), device=dev)),
-               ("NEG row and column", neg), ("n=1", rand(16, 1)),
-               ("n=33", rand(64, 33)), ("n=64", rand(64, 64)),
-               ("n=128", rand(16, 128))])
+               ("NEG row and column", neg),
+               ("-0.0 and +0.0 tied", zeros), ("B=1", rand(1, 32)),
+               ("beyond -INF", beyond), ("n=1", rand(16, 1)),
+               ("n=31", rand(64, 31)), ("n=33", rand(64, 33)),
+               ("n=52 (batchsim NMZ)", rand(200, 52)),
+               ("n=63", rand(64, 63)), ("n=64", rand(64, 64)),
+               ("n=128", rand(16, 128)), ("n=200", rand(4, 200)),
+               ("n=241 (global memory)", rand(4, 241)),
+               ("n=300 (global memory)", rand(2, 300)),
+               ("n=1024 (global memory)", rand(1, 1024))])
 
 
 def check_hungarian(torch, hk, A, cases, fs_tables):
@@ -758,12 +789,19 @@ def check_hungarian(torch, hk, A, cases, fs_tables):
         torch.cuda.synchronize()
         np.testing.assert_array_equal(k[0].cpu().numpy(), p[0].cpu().numpy(),
                                       err_msg=f"row_to_col ({name})")
+        for f, a, b in zip(("total", "u", "v"), k[1:], p[1:]):
+            np.testing.assert_array_equal(   # to the bit: -0.0 is not 0.0
+                a.view(torch.int32).cpu().numpy(),
+                b.view(torch.int32).cpu().numpy(), err_msg=f"{f} ({name})")
         case = [close(f"{f} ({name})", a, b, 0, 0)
                 for f, a, b in zip(("total", "u", "v"), k[1:], p[1:])]
         errs += case
+        plan = hk.launch_plan(*cost.shape[:2])
         print(f"hungarian: kernel == twin on {name} (B={cost.shape[0]}, "
-              f"n={cost.shape[1]}; max abs error total {case[0]:.3g}, u "
-              f"{case[1]:.3g}, v {case[2]:.3g})", flush=True)
+              f"n={cost.shape[1]}, K={plan.k}, matrix in "
+              f"{'shared' if plan.in_smem else 'global'} memory; max abs "
+              f"error total {case[0]:.3g}, u {case[1]:.3g}, v "
+              f"{case[2]:.3g})", flush=True)
     ms = cuda_ms(torch, lambda: hk.hungarian_uv(fs_tables))
     plain_ms = cuda_ms(torch, lambda: A.hungarian_uv_plain(fs_tables), n=5,
                        warmup=1)
@@ -777,7 +815,9 @@ def check_hungarian(torch, hk, A, cases, fs_tables):
                       "used_columns_over_trips": n_used,
                       "trips_per_matrix_max": int(trips.max()),
                       "device_ms": ms, "twin_ms": plain_ms,
-                      "call_ms": call_ms}), flush=True)
+                      "call_ms": call_ms,
+                      "ns_per_trip": ms * 1e6 / int(trips.max())}),
+          flush=True)
     out_bytes = nbytes(*out) - nbytes(out[0]) + B * n * 4  # int32 columns
     return (max(errs), ms, plain_ms, *bound(
         nbytes(fs_tables) + out_bytes,

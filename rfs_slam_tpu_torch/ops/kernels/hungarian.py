@@ -6,8 +6,9 @@ no Pallas kernel: a ``fori_loop`` over the rows around a ``while_loop``
 search whose trip count differs per lane, under ``vmap``.  In plain PyTorch
 that is thousands of small launches, and a host test per trip, for work
 that is one warp's: the kernel (``csrc/hungarian.cu``) solves each matrix in
-one CTA of one warp.  Its twin is
-:func:`rfs_slam_tpu_torch.ops.assignment.hungarian_uv_plain`.
+one CTA of one warp, with the matrix in shared memory and the search state
+in registers (lane ``l`` owns columns and rows ``1 + l + 32 k``, ``k < K``).
+Its twin is :func:`rfs_slam_tpu_torch.ops.assignment.hungarian_uv_plain`.
 
 :func:`hungarian_uv` launches the kernel for CUDA tensors and runs the twin
 for CPU tensors; nothing falls back.
@@ -25,6 +26,7 @@ from rfs_slam_tpu_torch.ops.kernels import build
 
 MAX_N = 1024
 THREADS = 32   # one warp a matrix
+KS = (1, 2, 4, 8, 16, 32)   # the kernel's instantiations: columns a lane owns
 
 # kernel launches made by hungarian_uv (the twin does not count)
 launches = 0
@@ -33,25 +35,31 @@ launches = 0
 class LaunchPlan(NamedTuple):
     threads: int   # one warp
     smem: int      # dynamic shared memory bytes
+    k: int         # columns (and rows) a lane owns: ceil(n / 32), rounded up
+    in_smem: bool  # the cost matrix copied into shared memory
 
 
 def launch_plan(B: int, n: int) -> LaunchPlan:
-    """The kernel's launch configuration: one CTA of one warp per matrix.
-    Shared memory holds the per-column state of the search (u, v, minv as
-    f32, way, p and the row counts as int32, each n + 1; used, n + 1
-    bytes) and the row -> column map (n int32), as ``csrc/hungarian.cu``
-    lays it out.  Raises ``ValueError`` for a shape the kernel does not
-    take."""
+    """The kernel's launch configuration: one CTA of one warp per matrix,
+    each lane owning ``k`` columns and rows (the least of :data:`KS` with
+    ``32 k >= n``).  Shared memory holds the cost matrix (``n * n`` f32)
+    where it fits a block's (``build.MAX_SMEM``, so n <= 240), and the row
+    -> column map (``n`` int32); a larger matrix is read from global
+    memory.  Raises ``ValueError`` for a shape the kernel does not take."""
     if B < 1 or not 1 <= n <= MAX_N:
         raise ValueError(f"hungarian: no launch for B={B}, n={n} "
                          f"(B >= 1, 1 <= n <= {MAX_N})")
-    return LaunchPlan(THREADS, 6 * 4 * (n + 1) + 4 * n + (n + 1))
+    k = next(k for k in KS if 32 * k >= n)
+    matrix = 4 * n * n
+    in_smem = matrix + 4 * n <= build.MAX_SMEM
+    return LaunchPlan(THREADS, (matrix if in_smem else 0) + 4 * n, k,
+                      in_smem)
 
 
 def _lib():
     lib = build.load("hungarian")
     if lib.hungarian_launch.argtypes is None:
-        lib.hungarian_launch.argtypes = [ctypes.c_int] * 4 + [
+        lib.hungarian_launch.argtypes = [ctypes.c_int] * 6 + [
             ctypes.c_void_p] * 6
         lib.hungarian_launch.restype = ctypes.c_int
     return lib

@@ -7,6 +7,7 @@ card, each entry point refuses to run unless asked for the CPU."""
 import dataclasses
 import filecmp
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from rfs_slam_tpu.apps import analysis2dsim as janalysis
+from rfs_slam_tpu.apps import batchsim as jbatchsim
 from rfs_slam_tpu.ops.ospa import ospa as jospa
 from rfs_slam_tpu_torch.apps import analysis2dsim, batchsim, fastslam2dsim
 from rfs_slam_tpu_torch.apps import rbphdslam2dsim
@@ -125,6 +127,35 @@ def test_batchsim_run_one_on_cpu(tmp_path, kind):
         n_particles=4, device=torch.device("cpu"))
     assert np.isfinite([mean_err, final_err, map_err, wall]).all()
     assert map_err >= 0.0 and mean_err < 5.0
+
+
+@pytest.mark.parametrize("kind,case", [("rbphd", "mixed"),
+                                       ("fastslam", "mixed"),
+                                       ("rbphd", "no weight reaches 0.75")])
+def test_final_map_cola_matches_jax(rng, kind, case):
+    """Both packages' batchsim.final_map_cola on the same final maps: the
+    best map's landmarks with w >= 0.75 (log-odds for FastSLAM) against
+    the landmarks observed by the last step.  With no weight at 0.75 the
+    COLA is the count of observed landmarks (50.0 at the stand-in XML's
+    defaults in both packages)."""
+    T, M, L = 3, 24, 14
+    first = rng.uniform(-1.0, 12.0, L)
+    first[:3] = -1.0                        # never observed
+    data = SimpleNamespace(landmarks=rng.uniform(-5, 5, (L, 2)),
+                           lmk_first_obs=first)
+    sim_cfg = SimpleNamespace(timesteps=101, dt=0.1)   # t_end 10 s
+    mean = rng.uniform(-5, 5, (T, M, 2)).astype(np.float32)
+    mean[-1, :L] = data.landmarks + rng.normal(0, 0.05, (L, 2))
+    w = (rng.uniform(0.0, 1.0, (T, M)) if kind == "rbphd"
+         else rng.normal(0.0, 2.0, (T, M))).astype(np.float32)
+    if case != "mixed":
+        w[:] = 0.5
+    alive = rng.random((T, M)) < 0.8
+    want = jbatchsim.final_map_cola(kind, data, sim_cfg, mean, w, alive)
+    got = batchsim.final_map_cola(kind, data, sim_cfg, mean, w, alive)
+    assert got == want
+    if case != "mixed":
+        assert got == float(((first >= 0) & (first <= 10.0)).sum())
 
 
 def test_batchsim_main_on_cpu(tmp_path):

@@ -72,6 +72,146 @@ def test_hungarian_empty_batch_on_cpu():
     assert sol.shape == (0, 4) and u.shape == (0, 5)
 
 
+# ---- a numpy model of the CUDA kernel's search (csrc/hungarian.cu): one
+# warp of 32 lanes, lane l owning columns and rows 1 + l + 32 k (k < K) in
+# [K, 32] arrays; the row counts from the visited i0; the argmin by
+# order-preserving keys with the lowest k, then the lowest lane, on ties;
+# u += delta * count.  The kernel runs only on the card; this holds its
+# algorithm to the twin and to JAX here.
+
+F32 = np.float32
+NO_KEY = np.uint32(0xFFFFFFFF)
+
+
+def order_keys(x):
+    """Order-preserving uint32 keys of f32 ``x``, -0.0 folded onto +0.0 by
+    adding +0.0."""
+    b = (np.asarray(x, F32) + F32(0)).view(np.uint32)
+    return np.where(b & np.uint32(0x80000000), ~b, b | np.uint32(0x80000000))
+
+
+def warp_hungarian(c):
+    """The kernel's search on one matrix ``c [n, n]`` (f32):
+    ``(row_to_col, total, u, v)``."""
+    n = c.shape[0]
+    K = hk.launch_plan(1, n).k
+    INF = F32(np.finfo(np.float32).max / 8)
+    inf_key = order_keys(np.array([INF]))[0]
+    col = 1 + np.arange(32)[None, :] + 32 * np.arange(K)[:, None]  # [K, 32]
+    valid = col <= n
+    a = np.zeros((K, 32, n), F32)       # a[k, l] = -c[:, col - 1]: by row
+    a[valid] = -c.T[col[valid] - 1]
+    slot = lambda j: ((j - 1) // 32, (j - 1) % 32)  # noqa: E731
+    u, v = np.zeros((K, 32), F32), np.zeros((K, 32), F32)
+    p = np.zeros((K, 32), np.int64)
+    u0, v0 = F32(0), F32(0)
+    for i in range(n):
+        minv = np.full((K, 32), INF, F32)
+        way = np.zeros((K, 32), np.int64)
+        cnt = np.zeros((K, 32), np.int64)
+        used = np.zeros((K, 32), bool)
+        p0 = i + 1
+        j0, i0, it = 0, p0, 0
+        while i0 != 0 and it <= n + 1:
+            if j0 != 0:
+                used[slot(j0)] = True
+            if it == 0 or j0 != 0:        # a trip that marked a new column
+                cnt[slot(i0)] += 1
+            ui0 = u[slot(i0)]
+            open_ = valid & ~used
+            cur = (a[:, :, i0 - 1] - ui0) - v
+            better = open_ & (cur < minv)
+            minv = np.where(better, cur, minv)
+            way = np.where(better, j0, way)
+            best, bk = np.zeros(32, F32), np.full(32, K)
+            for k in range(K):              # each lane's first minimum
+                take = open_[k] & ((bk == K) | (minv[k] < best))
+                best = np.where(take, minv[k], best)
+                bk = np.where(take, k, bk)
+            # no open column: the kernel's NaN, whose key is the largest
+            key = np.where(bk < K, order_keys(best), NO_KEY)
+            kmin = key.min()
+            wk = bk[key == kmin].min()
+            wl = int(np.flatnonzero((key == kmin) & (bk == wk))[0])
+            if kmin >= inf_key:             # column 0 (used, INF) wins
+                delta, j1 = INF, 0
+            else:
+                delta, j1 = best[wl], 1 + wl + 32 * int(wk)
+            u0 = u0 + delta * F32(0)
+            u = u + delta * cnt.astype(F32)
+            v0 = v0 - delta
+            v = np.where(used, v - delta, v)
+            minv = np.where(used, minv, minv - delta)
+            j0, i0, it = j1, (p0 if j1 == 0 else int(p[slot(j1)])), it + 1
+        it = 0
+        while j0 != 0 and it <= n + 1:
+            j1 = int(way[slot(j0)])
+            p[slot(j0)] = p0 if j1 == 0 else p[slot(j1)]
+            j0, it = j1, it + 1
+    r2c = np.zeros(n, np.int64)
+    for k, lane in zip(*np.nonzero(valid & (p != 0))):
+        r = p[k, lane] - 1
+        r2c[r] = max(r2c[r], col[k, lane] - 1)
+    total = F32(0)
+    for r in range(n):
+        total = total + c[r, r2c[r]]
+    return (r2c, total, np.concatenate([[u0], u.reshape(-1)[:n]]),
+            np.concatenate([[v0], v.reshape(-1)[:n]]))
+
+
+def beyond_inf(rng, n, B=4):
+    """Rows and columns of -3e38, below -INF: every unused minv stays at
+    INF, column 0 wins the argmin (delta = INF), and the next trip revisits
+    it without marking a new column; the potentials overflow."""
+    c = (rng.normal(size=(B, n, n)) * 3).astype(F32)
+    c[0, 1, :] = -3e38
+    c[1] = -3e38
+    c[2, :, 0] = -3e38
+    c[3, 0, :2] = -3e38
+    return c
+
+
+def signed_zero_ties(rng, n, B=6):
+    """Each row's maximum a 0.0 or -0.0 at several columns, tied under <."""
+    c = -np.abs(rng.normal(size=(B, n, n))).astype(F32) - F32(0.5)
+    hits = rng.random((B, n, n)) < 0.2
+    c[hits] = np.where(rng.random(hits.sum()) < 0.5, F32(0.0), F32(-0.0))
+    return c
+
+
+def bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 52, 64, "signed zeros",
+                               "beyond INF"])
+def test_warp_search_model_equals_twin_and_jax_to_the_bit(rng, n):
+    """The kernel's search, modelled, gives the twin's four outputs to the
+    bit, and JAX's row_to_col, u and v to the bit."""
+    c = (signed_zero_ties(rng, 32) if n == "signed zeros"
+         else beyond_inf(rng, 33) if n == "beyond INF"
+         else hungarian_cases(rng, n, B=6 if n > 32 else 12))
+    twin = pa.hungarian_uv_plain(t(c))
+    want = jax.vmap(ja._hungarian_uv)(jnp.asarray(c))
+    with np.errstate(over="ignore", invalid="ignore"):
+        got = [warp_hungarian(m) for m in c]
+    for f, name in enumerate(("row_to_col", "total", "u", "v")):
+        g = np.stack([np.asarray(x[f]) for x in got])
+        if f == 0:
+            np.testing.assert_array_equal(g, twin[0].numpy(), err_msg=name)
+            np.testing.assert_array_equal(g, np.asarray(want[0]),
+                                          err_msg=name)
+            continue
+        np.testing.assert_array_equal(bits(g), bits(twin[f].numpy()),
+                                      err_msg=name)
+        if name == "total":   # jnp.sum adds in XLA's order, not row by row
+            np.testing.assert_allclose(g, np.asarray(want[f]), rtol=RTOL,
+                                       atol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(bits(g), bits(want[f]),
+                                          err_msg=name)
+
+
 def assert_murty_equal(got, want):
     for g, w in zip(got, want):
         g, w = g.numpy(), np.asarray(w)

@@ -10,7 +10,7 @@ import textwrap
 
 import pytest
 
-from rfs_slam_tpu_torch.ops.kernels import hungarian
+from rfs_slam_tpu_torch.ops.kernels import build, hungarian
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,15 +81,25 @@ def test_port_imports_and_steps_without_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 30
 
 
-@pytest.mark.parametrize("B,n", [(1, 1), (200, 32), (1200, 32), (8, 33),
-                                 (4, 128), (2, 1024)])
-def test_hungarian_launch_plan_accepts(B, n):
-    threads, smem = hungarian.launch_plan(B, n)
-    assert threads == 32
-    assert smem == 25 * (n + 1) + 4 * n and smem <= 48 * 1024
+@pytest.mark.parametrize("B,n,k,in_smem", [
+    (1, 1, 1, True), (200, 32, 1, True), (1200, 32, 1, True),
+    (8, 33, 2, True), (4, 128, 4, True), (2, 1024, 32, False),
+    (3, 1, 1, True), (3, 32, 1, True), (3, 33, 2, True), (3, 52, 2, True),
+    (3, 64, 2, True), (3, 65, 4, True), (3, 128, 4, True),
+    (3, 129, 8, True), (3, 240, 8, True), (3, 241, 8, False),
+    (3, 256, 8, False), (3, 257, 16, False), (3, 513, 32, False),
+    (3, 1024, 32, False)])
+def test_hungarian_launch_plan_accepts(B, n, k, in_smem):
+    """K = ceil(n / 32) rounded up to an instantiation; the matrix in shared
+    memory up to n = 240 (4 n^2 + 4 n bytes within a block's 232,448),
+    read from global memory above."""
+    plan = hungarian.launch_plan(B, n)
+    assert (plan.threads, plan.k, plan.in_smem) == (32, k, in_smem)
+    assert plan.smem == 4 * n * n * in_smem + 4 * n
+    assert plan.smem <= build.MAX_SMEM
 
 
-@pytest.mark.parametrize("B,n", [(0, 32), (8, 0), (8, 1025)])
+@pytest.mark.parametrize("B,n", [(0, 32), (8, 0), (8, 1025), (0, 300)])
 def test_hungarian_launch_plan_refuses(B, n):
     with pytest.raises(ValueError):
         hungarian.launch_plan(B, n)
