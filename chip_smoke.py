@@ -51,10 +51,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    launches an update (the gated root, Murty's root and two waves), with
    seeds 1-3 beside seed 0 for its bound; then one more update with the
    kernel's inputs recorded;
+11. Victoria Park FastSLAM 1.0 through ``fastslam_victoriapark.run`` at
+   the app's width (P=200, M=512, Zc=24, NMZ=32) over the first 2,000 of
+   the seed-0 synthetic stream's 7,230 frames (no scans; depth cut to fit
+   the call), in chunks of 500 frames, each under torch's sync debug mode
+   set to raise: frames/s, the RMSE against the GPS beside dead
+   reckoning's, ``hungarian`` launches (one for each frame with
+   measurements) and the best particle's alive landmarks; generator seeds
+   1-7 run later in seven worker processes, beside phases 10 and 13, and
+   the median RMSE of the eight runs is held below dead reckoning's and
+   within a divergence bound from the JAX package's runs (section 6 of
+   PERF.md);
+12. MH-FastSLAM the same way (H=3, 200 live of 600, lane budget 200) over
+   the first 500 frames, four launches for each frame with measurements,
+   generator seeds 1-7 beside seed 0 for its bound;
 9. ``hungarian``: kernel against its plain twin, ``row_to_col`` equal and
    ``u``, ``v``, ``total`` equal to the bit, on random batches at (B, n) =
    (200, 32), (600, 32), (1200, 32), the DA tables of step 1,500 of phase
-   7, the matrices of phase 8's recorded update (the Murty waves' with
+   7 and of frame 2,000 of phase 11 (D=3, on its final state), the
+   matrices of phase 8's recorded update (the Murty waves' with
    their NEG bans), all-equal matrices, a NEG row and column, -0.0 and
    +0.0 tied in rows, B=1, rows and columns below -INF, n = 1, 31, 33, 52
    (batchsim's NMZ), 63, 64, 128 and 200, and n = 241, 300 and 1024, whose
@@ -63,6 +78,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    time of one search trip of the slowest matrix (``ns_per_trip``);
 10. ``batchsim.run_one`` on the card, one 300-step cell of each filter kind
    (clutter 1e-3, measurement capacity 48: NMZ 52): finite errors and COLA;
+13. resume on the card, for both Victoria Park apps at their widths: a
+   300-frame run against one cut after a 150-frame chunk and resumed from
+   its snapshot in a temporary directory; outputs and final state equal
+   bit for bit (floats as int32 views), with the frames where the run was
+   cut and resumed;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -125,6 +145,26 @@ FS_BOUND_SEEDS = tuple(range(1, 16))  # beside the main path's seed 0
 MH_BOUND_SEEDS = (1, 2, 3)
 SEED_WORKERS = 3           # processes running the bound's seeds
 FS_MID_STEP = 1500         # the DA tables checked and timed
+# Victoria Park FastSLAM (phases 11-13) on the seed-0 synthetic stream at
+# the app's width (P=200, M=512, Zc=24, NMZ=32).  Bounds from the JAX
+# package's app on the same frames on the CPU at the same width
+# (scripts/vp_fastslam_jax_rmse.py; PERF.md, section 6), by the rule of
+# phases 7-8: the largest median of JAX's keys in groups of as many runs
+# as the port's seeds, rounded up at its first significant digit.
+VP_FS_FRAMES = 2000        # of 7,230: the depth cut
+VP_MH_FRAMES = 500         # MH-FastSLAM's depth cut
+VP_FS_BOUND_SEEDS = tuple(range(1, 8))   # beside the main path's seed 0
+VP_MH_BOUND_SEEDS = tuple(range(1, 8))
+VP_SEED_WORKERS = 7        # processes running the VP bounds' seeds
+# FastSLAM 1.0: JAX keys 0-31 in groups of 8, medians 0.857, 1.700, 0.612,
+# 1.541 m (a random 8-key median exceeds 2.0 m 3.8% of the time).
+VP_FS_DIVERGENCE_BOUND_M = 2.0
+# MH-FastSLAM (500 frames): keys 0-31 in groups of 8, medians 0.595, 0.454,
+# 0.730, 1.281 m (a random 8-key median exceeds 2.0 m 0.026% of the time).
+VP_MH_DIVERGENCE_BOUND_M = 2.0
+VP_FS_CHUNK = 500          # frames a chunk of the chunked run
+VP_RESUME_FRAMES = 300     # phase 13: a run cut after half of these
+VP_FS_TABLE_FRAME = VP_FS_FRAMES  # the DA tables phase 9 checks
 # f32 operations a search trip needs on each column: an unused one its
 # reduced cost (2), its compare with minv (1), the argmin (1) and minv's
 # step (1); a used one v's step (1) and its row's u (1)
@@ -645,6 +685,18 @@ def keep_mid_tables(filt, din, k, state, mid):
                                        filt.meas)[0]
 
 
+def hungarian_per_update(filt):
+    """``hungarian`` launches of one FastSLAM update with measurements: one
+    (FastSLAM 1.0), or the gated root, Murty's root and its H - 1 waves
+    (MH with a lane budget below the particle axis; H without the gate)."""
+    c = filt.cfg
+    if c.max_hypotheses == 1:
+        return 1
+    gated = (c.murty_lane_budget is not None
+             and c.murty_lane_budget < filt.p_cap)
+    return c.max_hypotheses + 1 if gated else c.max_hypotheses
+
+
 def fastslam_run(torch, loop, hk, kind, steps, dev):
     """One FastSLAM run of :func:`fastslam_setup`, the step loop under
     torch's sync debug mode (a read-back inside it raises), then the
@@ -676,10 +728,7 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
     launches = hk.launches
     c = filt.cfg
     n_upd = int(din[-1].sum())
-    per_update = (1 if c.max_hypotheses == 1
-                  else c.max_hypotheses + 1 if c.murty_lane_budget is not None
-                  and c.murty_lane_budget < filt.p_cap else c.max_hypotheses)
-    if launches != per_update * n_upd:
+    if launches != hungarian_per_update(filt) * n_upd:
         raise AssertionError(f"hungarian: {launches} launches on the {kind} "
                              f"path, {n_upd} updates had measurements")
     best = best.cpu().numpy()
@@ -719,6 +768,218 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
     return filt, state, din, gen, mid.get("tables"), rec
 
 
+def vp_fastslam_setup(plain, cfg_path, hypotheses, n_frames, dev):
+    """The Victoria Park FastSLAM filter (``hypotheses``) at the app's
+    width on ``dev``, the synthetic stream and its first ``n_frames``
+    frames: ``(filter, input_cov, stream, frames)``."""
+    from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
+    from rfs_slam_tpu_torch.io import victoria_park as vp_io
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
+
+    filt, icov, ack = fs_vp.build(XmlConfig(cfg_path), hypotheses=hypotheses,
+                                  device=dev)
+    stream = vp_io.load(plain, z_capacity=fs_vp.Z_CAPACITY, ackerman=ack)
+    return filt, icov, stream, vp_app.head(stream, n_frames)
+
+
+def vp_seed_worker(plain, cfg_path, hypotheses, n_frames, seeds, device):
+    """A worker process's share of a VP divergence bound's seeds: the RMSE
+    against the GPS of one run of :func:`vp_fastslam_setup` per generator
+    seed."""
+    import torch
+    from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
+
+    dev = torch.device(device)
+    filt, icov, _, frames = vp_fastslam_setup(plain, cfg_path, hypotheses,
+                                              n_frames, dev)
+    out = []
+    for seed in seeds:
+        _, outs = fs_vp.run(filt, icov, frames, torch.Generator(
+            device=dev).manual_seed(seed), progress=False)
+        out.append(vp_app.trajectory_rmse(frames, outs)[0])
+    return out
+
+
+def vp_fastslam_run(torch, hk, plain, cfg_path, hypotheses, n_frames, seeds,
+                    dev):
+    """Phases 11-12: one Victoria Park FastSLAM run through the app's
+    ``run`` (chunks of VP_FS_CHUNK frames, each under torch's sync debug
+    mode set to raise), its ``hungarian`` launches held to the frames with
+    measurements.  The bound's other ``seeds`` run later in worker
+    processes (:func:`submit_vp_seeds`).  Returns ``(filter, final state,
+    stream, record)``."""
+    from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
+
+    filt, icov, stream, frames = vp_fastslam_setup(plain, cfg_path,
+                                                   hypotheses, n_frames, dev)
+    n_meas = int(frames.z_mask.any(axis=1).sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = fs_vp.run(filt, icov, frames, gen, ckpt_every=VP_FS_CHUNK,
+                            check_reads=True, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hk.launches
+    if launches != hungarian_per_update(filt) * n_meas:
+        raise AssertionError(f"hungarian: {launches} launches on the VP "
+                             f"FastSLAM path (H={hypotheses}), {n_meas} "
+                             f"frames had measurements")
+    live = torch.isfinite(state.particles.log_w)
+    alive = state.gm.alive
+    if not (np.isfinite(outs["pose"]).all() and np.isfinite(outs["w"]).all()
+            and bool(torch.isfinite(state.particles.pose[live]).all())
+            and bool(torch.isfinite(state.gm.w[alive]).all())
+            and bool(torch.isfinite(state.gm.mean[:, alive]).all())):
+        raise AssertionError(f"VP FastSLAM H={hypotheses}: non-finite "
+                             f"outputs")
+    rmse, dr = vp_app.trajectory_rmse(frames, outs)
+    c = filt.cfg
+    rec = {"path": f"victoria_park fastslam H={hypotheses} synthetic stream "
+                   f"seed 0", "frames": len(frames.t),
+           "frames_cut_from": len(stream.t), "particles": c.n_particles,
+           "particle_axis": filt.p_cap, "hypotheses": c.max_hypotheses,
+           "map_capacity": c.map_capacity, "nmz": c.nmz_capacity,
+           "chunk_frames": VP_FS_CHUNK, "wall_s": wall,
+           "frames_per_s": len(frames.t) / wall, "rmse_m": rmse,
+           "dead_reckoning_rmse_m": dr, "hungarian_launches": launches,
+           "frames_with_measurements": n_meas,
+           "live_particles": int(live.sum()),
+           "best_alive": int(alive[int(torch.argmax(
+               state.particles.log_w))].sum())}
+    rec["seeds"] = [0, *seeds]
+    return filt, state, stream, rec
+
+
+def submit_vp_seeds(pool, plain, cfg_path, runs, dev):
+    """The VP bounds' other seeds, one task a seed on ``pool``: ``runs``
+    holds ``(record, hypotheses, frames)``; returns ``(record, futures)``
+    pairs for :func:`collect_vp_seeds`."""
+    return [(rec, [pool.submit(vp_seed_worker, plain, cfg_path, h, n, (s,),
+                               str(dev)) for s in rec["seeds"][1:]])
+            for rec, h, n in runs]
+
+
+def collect_vp_seeds(submitted):
+    """Each record's seed RMSEs (the main run's first) and their median,
+    printed with the record."""
+    for rec, futures in submitted:
+        rec["seed_rmse_m"] = [rec["rmse_m"]] + [f.result()[0]
+                                                for f in futures]
+        rec["median_of_seeds_m"] = float(np.median(rec["seed_rmse_m"]))
+        print(json.dumps(rec), flush=True)
+
+
+def vp_seed_pool():
+    return concurrent.futures.ProcessPoolExecutor(
+        VP_SEED_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+
+def bit_view(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def state_arrays(state, where="state"):
+    """A state dataclass's tensors as numpy arrays by dotted name."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(state_arrays(v, f"{where}.{f.name}"))
+        else:
+            out[f"{where}.{f.name}"] = v.cpu().numpy()
+    return out
+
+
+def vp_resume(torch, plain, cfg_path, dev):
+    """Phase 13: for both Victoria Park apps at their widths, an unbroken
+    VP_RESUME_FRAMES-frame run against one cut after its first chunk of
+    half as many frames and resumed from a temporary directory: outputs
+    and final state equal bit for bit (floats as int32 views)."""
+    from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp
+    from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app
+    from rfs_slam_tpu_torch.io import victoria_park as vp_io
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
+    from rfs_slam_tpu_torch.utils import checkpoint
+
+    half = VP_RESUME_FRAMES // 2
+    for kind, mod in (("rbphd", vp_app), ("fastslam", fs_vp)):
+        filt, icov, ack = mod.build(XmlConfig(cfg_path), device=dev)
+        frames = vp_app.head(vp_io.load(plain, z_capacity=mod.Z_CAPACITY,
+                                        ackerman=ack), VP_RESUME_FRAMES)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(0)
+
+        t0 = time.perf_counter()
+        want_state, want = mod.run(filt, icov, frames, gen(), progress=False)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(HERE, "build")) as d:
+            mod.run(filt, icov, vp_app.head(frames, half), gen(), ckpt_dir=d,
+                    ckpt_every=half, progress=False)
+            cut = checkpoint.latest_step(d)
+            state, got = mod.run(filt, icov, frames, gen(), ckpt_dir=d,
+                                 ckpt_every=half, resume=True,
+                                 progress=False)
+        torch.cuda.synchronize()
+        for name in want:
+            np.testing.assert_array_equal(
+                bit_view(got[name]), bit_view(want[name]),
+                err_msg=f"resume {kind}: output {name}")
+        a, b = state_arrays(state), state_arrays(want_state)
+        for name in b:
+            np.testing.assert_array_equal(
+                bit_view(a[name]), bit_view(b[name]),
+                err_msg=f"resume {kind}: {name}")
+        print(json.dumps({
+            "resume": f"victoria_park {kind}", "frames": len(frames.t),
+            "particles": filt.cfg.n_particles,
+            "map_capacity": filt.cfg.map_capacity, "cut_after_frame": half,
+            "resumed_from_frame": cut, "outputs_bit_equal": True,
+            "state_bit_equal": True, "arrays_compared": len(want) + len(b),
+            "wall_s": time.perf_counter() - t0}), flush=True)
+
+
+def vp_fastslam_phases(torch, hk, plain, cfg_path, dev):
+    """The main runs of phases 11-12, each with its bound; returns
+    ``(runs, tables)``: ``(record, hypotheses, frames)`` for
+    :func:`submit_vp_seeds`, and the DA tables of frame VP_FS_TABLE_FRAME
+    on FastSLAM 1.0's final state (a ``hungarian`` case of phase 9)."""
+    filt, state, stream, rec = vp_fastslam_run(
+        torch, hk, plain, cfg_path, 1, VP_FS_FRAMES, VP_FS_BOUND_SEEDS, dev)
+    rec["divergence_bound_m"] = VP_FS_DIVERGENCE_BOUND_M
+    runs = [(rec, 1, VP_FS_FRAMES)]
+    j = VP_FS_TABLE_FRAME
+    tables = filt._da_table(
+        state.particles.pose, state.gm,
+        torch.as_tensor(stream.z[j], dtype=torch.float32, device=dev),
+        torch.as_tensor(stream.z_mask[j], device=dev), filt.meas)[0]
+    *_, rec = vp_fastslam_run(torch, hk, plain, cfg_path, 3, VP_MH_FRAMES,
+                              VP_MH_BOUND_SEEDS, dev)
+    rec["divergence_bound_m"] = VP_MH_DIVERGENCE_BOUND_M
+    runs.append((rec, 3, VP_MH_FRAMES))
+    return runs, tables
+
+
+def check_vp_accuracy(runs):
+    """Phases 11-12's accuracy: the median RMSE of the seeds within the
+    divergence bound and below dead reckoning's."""
+    for rec, _, _ in runs:
+        med = rec["median_of_seeds_m"]
+        if not med < rec["dead_reckoning_rmse_m"]:
+            raise AssertionError(f"{rec['path']}: median RMSE over seeds "
+                                 f"{med} m is not below dead reckoning's")
+        if not med <= rec["divergence_bound_m"]:
+            raise AssertionError(f"{rec['path']}: median RMSE over seeds "
+                                 f"{rec['seeds']} {med} m > "
+                                 f"{rec['divergence_bound_m']} m")
+
+
 def recorded_update(torch, hk, filt, state, din, gen):
     """The inputs of every ``hungarian`` call of one more update (the MH
     path: the gated root, Murty's root and its waves)."""
@@ -738,7 +999,7 @@ def recorded_update(torch, hk, filt, state, din, gen):
     return seen
 
 
-def hungarian_cases(torch, A, fs_tables, mh_inputs, dev):
+def hungarian_cases(torch, A, fs_tables, mh_inputs, vp_tables, dev):
     """The inputs ``hungarian`` is held to its twin on."""
     rng = np.random.default_rng(2)
 
@@ -763,7 +1024,9 @@ def hungarian_cases(torch, A, fs_tables, mh_inputs, dev):
     names = ("MH gated root", "MH Murty root", "MH wave 1 (NEG bans)",
              "MH wave 2 (NEG bans)")
     return ([(f"random B={B}", rand(B, 32)) for B in (200, 600, 1200)]
-            + [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables)]
+            + [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables),
+               (f"VP FastSLAM DA tables, frame {VP_FS_TABLE_FRAME}",
+                vp_tables)]
             + list(zip(names, mh_inputs))
             + [("all equal (ties)", torch.ones((64, 32, 32), device=dev)),
                ("NEG row and column", neg),
@@ -778,10 +1041,12 @@ def hungarian_cases(torch, A, fs_tables, mh_inputs, dev):
                ("n=1024 (global memory)", rand(1, 1024))])
 
 
-def check_hungarian(torch, hk, A, cases, fs_tables):
+def check_hungarian(torch, hk, A, cases, timed):
     """Kernel against twin on every case: row_to_col equal, u / v / total
-    equal to the bit (their max abs error printed); then timed on the DA
-    tables, with the bound from the twin's trips and used columns there."""
+    equal to the bit (their max abs error printed); then timed on each of
+    ``timed`` (``(name, tables)`` pairs, one JSON line each).  The kernel
+    table's row is the first one's, with the bound from the twin's trips
+    and used columns there."""
     errs = []
     for name, cost in cases:
         k = hk.hungarian_uv(cost)
@@ -802,27 +1067,30 @@ def check_hungarian(torch, hk, A, cases, fs_tables):
               f"{'shared' if plan.in_smem else 'global'} memory; max abs "
               f"error total {case[0]:.3g}, u {case[1]:.3g}, v "
               f"{case[2]:.3g})", flush=True)
-    ms = cuda_ms(torch, lambda: hk.hungarian_uv(fs_tables))
-    plain_ms = cuda_ms(torch, lambda: A.hungarian_uv_plain(fs_tables), n=5,
-                       warmup=1)
-    call_ms = cuda_ms(torch, lambda: hk.hungarian_uv(fs_tables), queued=False)
-    B, n, _ = fs_tables.shape
-    *out, trips, used = A.hungarian_uv_plain(fs_tables, return_trips=True)
-    n_trips, n_used = int(trips.sum()), int(used.sum())
-    print(json.dumps({"hungarian_timed_on": f"FastSLAM DA tables, step "
-                      f"{FS_MID_STEP}", "B": B, "n": n,
-                      "search_trips": n_trips,
-                      "used_columns_over_trips": n_used,
-                      "trips_per_matrix_max": int(trips.max()),
-                      "device_ms": ms, "twin_ms": plain_ms,
-                      "call_ms": call_ms,
-                      "ns_per_trip": ms * 1e6 / int(trips.max())}),
-          flush=True)
-    out_bytes = nbytes(*out) - nbytes(out[0]) + B * n * 4  # int32 columns
-    return (max(errs), ms, plain_ms, *bound(
-        nbytes(fs_tables) + out_bytes,
-        (n_trips * (n + 1) - n_used) * HUNGARIAN_FLOP_UNUSED
-        + n_used * HUNGARIAN_FLOP_USED))
+    rows = []
+    for name, tables in timed:
+        ms = cuda_ms(torch, lambda: hk.hungarian_uv(tables))
+        plain_ms = cuda_ms(torch, lambda: A.hungarian_uv_plain(tables), n=5,
+                           warmup=1)
+        call_ms = cuda_ms(torch, lambda: hk.hungarian_uv(tables),
+                          queued=False)
+        B, n, _ = tables.shape
+        *out, trips, used = A.hungarian_uv_plain(tables, return_trips=True)
+        n_trips, n_used = int(trips.sum()), int(used.sum())
+        print(json.dumps({"hungarian_timed_on": name, "B": B, "n": n,
+                          "search_trips": n_trips,
+                          "used_columns_over_trips": n_used,
+                          "trips_per_matrix_max": int(trips.max()),
+                          "device_ms": ms, "twin_ms": plain_ms,
+                          "call_ms": call_ms,
+                          "ns_per_trip": ms * 1e6 / int(trips.max())}),
+              flush=True)
+        out_bytes = nbytes(*out) - nbytes(out[0]) + B * n * 4  # int32 cols
+        rows.append((max(errs), ms, plain_ms, *bound(
+            nbytes(tables) + out_bytes,
+            (n_trips * (n + 1) - n_used) * HUNGARIAN_FLOP_UNUSED
+            + n_used * HUNGARIAN_FLOP_USED)))
+    return rows[0]
 
 
 def batchsim_cells(torch, batchsim, kernels, dev):
@@ -1025,13 +1293,26 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
     mh_inputs = recorded_update(torch, hk, mh_filt, mh_state, mh_din, mh_gen)
 
-    # ---- 9. the Hungarian kernel against its twin
-    hk_row = check_hungarian(
-        torch, hk, A, hungarian_cases(torch, A, fs_tables, mh_inputs, dev),
-        fs_tables)
+    # ---- 11-12. Victoria Park FastSLAM 1.0 and MH-FastSLAM, main runs
+    vp_runs, vp_tables = vp_fastslam_phases(torch, hk, vp_plain, vp_cfg, dev)
 
-    # ---- 10. batchsim cells on the card
-    batchsim_cells(torch, batchsim, (mu, mg, m3, hk), dev)
+    # ---- 9. the Hungarian kernel against its twin (timed alone); the
+    # kernel table's row is timed on the FastSLAM tables
+    hk_row = check_hungarian(
+        torch, hk, A, hungarian_cases(torch, A, fs_tables, mh_inputs,
+                                      vp_tables, dev),
+        [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables),
+         (f"VP FastSLAM DA tables, frame {VP_FS_TABLE_FRAME}", vp_tables)])
+
+    # the VP bounds' seeds in worker processes, beside phases 10 and 13:
+    # neither holds a time to a bound
+    with vp_seed_pool() as pool:
+        submitted = submit_vp_seeds(pool, vp_plain, vp_cfg, vp_runs, dev)
+        # ---- 10. batchsim cells on the card
+        batchsim_cells(torch, batchsim, (mu, mg, m3, hk), dev)
+        # ---- 13. resume on the card, both Victoria Park apps
+        vp_resume(torch, vp_plain, vp_cfg, dev)
+        collect_vp_seeds(submitted)
 
     # the accuracy of phases 7-8 (checked once every phase has printed):
     # every seed's run below dead reckoning, their median within the bound
@@ -1044,6 +1325,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{rec['path']}: median over seeds "
                                  f"{rec['seeds']} {med} m > "
                                  f"{rec['divergence_bound_m']} m")
+    check_vp_accuracy(vp_runs)
 
     # ---- 6. the 4-seed simulation median
     if args.gates:

@@ -13,7 +13,10 @@ Usage (the reference's XML is not in the repository;
 
     python -m rfs_slam_tpu_torch.apps.rbphdslam2dsim --cfg CFG.xml \
         [--trajectory N] [--seed N] [--steps N] [--logdir DIR] \
-        [--particles N] [--device cpu]
+        [--particles N] [--device cpu] [--profile]
+
+``--profile`` times the filter's seven phases on step 1 first
+(``utils/timing.py``) and, with logs, writes them to ``timing.dat``.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from rfs_slam_tpu_torch.apps.sim2d_common import (
     GT_LOCK_STEPS, device_for, run_logged, sim_inputs, sim_models,
     write_logs, xml_models)
 from rfs_slam_tpu_torch.filters.rbphd import RBPHDConfig, RBPHDFilter
-from rfs_slam_tpu_torch.io import sim2d
+from rfs_slam_tpu_torch.io import logs, sim2d
 from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates
+from rfs_slam_tpu_torch.utils.timing import profile_phases
 
 N_PARTICLES = 200
 T = 3000
@@ -122,6 +126,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "twins)")
+    ap.add_argument("--profile", action="store_true",
+                    help="per-phase timing report (timing.dat), host and "
+                         "device times")
     args = ap.parse_args(argv)
 
     dev = device_for(args.device)
@@ -136,6 +143,17 @@ def main(argv=None):
                                  n_particles=args.particles, device=dev)
     print(f"rbphdslam2dsim: T={sim_cfg.timesteps} P={filt.cfg.n_particles} "
           f"L={sim_cfg.n_landmarks} Zmax={zc} device={dev}")
+    if args.profile:
+        # the TimingInfo report (RBPHDFilter.hpp:1219-1232) on step 1
+        def put(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        timer = profile_phases(
+            filt, filt.init_state(torch.zeros(3, device=dev)),
+            put(data.odometry[1]), sim_cfg.dt, put(data.z[1]),
+            put(data.z_mask[1], torch.bool),
+            torch.Generator(device=dev).manual_seed(args.seed))
+        print(timer.table())
     t0 = time.perf_counter()
     # the filter's generator is seeded 0, as the JAX app's key
     _, outs = run_logged(filt, sim_inputs(data, z_capacity=max(zc, 4)),
@@ -149,6 +167,8 @@ def main(argv=None):
                                     str)
     if cfg.get("logging.logResultsToFile", 0, int) or args.logdir:
         err = write_logs(logdir, args.cfg, data, sim_cfg.dt, outs)
+        if args.profile:
+            logs.write_timing(logdir, timer.report())
         print(f"logs -> {logdir}; median best-particle pose err "
               f"{err:.4f} m")
 

@@ -13,6 +13,11 @@ kernel's launches); its phases are predict, da_table, assoc (the
 Hungarian or the gated Murty), map_update (the EKF and existence updates of
 the chosen hypotheses), prune, births (the landmark candidates) and
 resample (with the map copy); ``update`` spans them.
+``--path vp_fastslam``: FastSLAM 1.0 (``--hypotheses 1``) or MH-FastSLAM
+(``--hypotheses 3``) at the Victoria Park FastSLAM app's width (P=200,
+M=512, Zc=24, a DA table of 32) on the synthetic stream (frames/s,
+trajectory RMSE beside dead reckoning's, the Hungarian kernel's launches
+beside the frames with measurements), with the FastSLAM phases.
 
 The window is a second run of ``start + length`` frames (or steps) whose
 last ``length`` run under ``torch.profiler``, each filter phase inside a
@@ -32,6 +37,8 @@ Usage, from the repository root on a machine with the card::
     python3 scripts/profile_torch.py --path replay --window 1000:60
     python3 scripts/profile_torch.py --path fastslam --hypotheses 3 \
         --frames 2000 --window 1000:40
+    python3 scripts/profile_torch.py --path vp_fastslam [--hypotheses 3] \
+        --frames 2000 --window 1000:40
 """
 
 import argparse
@@ -48,7 +55,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from rfs_slam_tpu_torch.apps import _vp_common  # noqa: E402
 from rfs_slam_tpu_torch.apps import fastslam2dsim as fs_app  # noqa: E402
+from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp  # noqa
 from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app2d  # noqa: E402
 from rfs_slam_tpu_torch.apps import sim2d_common as loop  # noqa: E402
 from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as app  # noqa: E402
@@ -111,13 +120,20 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def vp_path(args, dev):
-    """(filter, whole-run record, warm(start) -> the state before frame
-    ``start``, step(state, j) -> state) of the Victoria Park path."""
+def vp_stream(args):
+    """The synthetic Victoria Park stream of ``--seed`` (written under
+    build/ once) and its config."""
     data = os.path.join(ROOT, "build", "vp_synth", f"seed{args.seed}")
     if not os.path.exists(os.path.join(data, "gps.dat")):
         vp_synth.write(data, seed=args.seed)
-    cfg = XmlConfig(vp_synth.write_config(os.path.join(data, "config.xml")))
+    return data, XmlConfig(vp_synth.write_config(os.path.join(data,
+                                                              "config.xml")))
+
+
+def vp_path(args, dev):
+    """(filter, whole-run record, warm(start) -> the state before frame
+    ``start``, step(state, j) -> state) of the Victoria Park path."""
+    data, cfg = vp_stream(args)
     filt, icov, ack = app.build(cfg, device=dev)
     stream = vp_io.load(data, z_capacity=app.Z_CAPACITY, ackerman=ack)
     frames = app.head(stream, args.frames)
@@ -135,20 +151,49 @@ def vp_path(args, dev):
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "final_alive_mean": float(state.gm.alive.sum(dim=1).float().mean())}
 
-    dts = np.where(frames.pred_valid, frames.pred_dt, 0).astype(np.float32)
-    put = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
-                                                      device=dev)
-    u, z = put(frames.pred_u), put(frames.z)
-    zm, has_z = put(frames.z_mask, torch.bool), frames.z_mask.any(axis=1)
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def step(state, j):
-        return app.step_frame(filt, state, filt.meas, dts[j], u[j],
-                              frames.pred_noise[j], icov, z[j], zm[j],
-                              bool(has_z[j]), gen)
+    step = _vp_common.make_frame_step(filt, app.step_frame, frames, gen, icov)
 
     def warm(start):
         state = filt.init_state(torch.zeros(3, device=dev), dz=3, d=3)
+        for j in range(start):
+            state = step(state, j)
+        return state
+
+    return filt, record, warm, step
+
+
+def vp_fastslam_path(args, dev):
+    """The same four for Victoria Park FastSLAM (``--hypotheses``) on the
+    first ``--frames`` frames of the synthetic stream."""
+    data, cfg = vp_stream(args)
+    filt, icov, ack = fs_vp.build(cfg, hypotheses=args.hypotheses,
+                                  device=dev)
+    frames = app.head(vp_io.load(data, z_capacity=fs_vp.Z_CAPACITY,
+                                 ackerman=ack), args.frames)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hungarian.launches = 0
+    (state, outs), wall = timed(lambda: fs_vp.run(filt, icov, frames, gen,
+                                                  progress=False))
+    rmse, dr = app.trajectory_rmse(frames, outs)
+    best = int(torch.argmax(state.particles.log_w))
+    record = {
+        "run": f"victoria_park fastslam H={args.hypotheses} synthetic",
+        "frames": len(frames.t), "particles": filt.cfg.n_particles,
+        "particle_axis": filt.p_cap,
+        "frames_with_measurements": int(frames.z_mask.any(axis=1).sum()),
+        "hungarian_launches": hungarian.launches, "wall_s": wall,
+        "frames_per_s": len(frames.t) / wall, "rmse_m": rmse,
+        "dead_reckoning_rmse_m": dr,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "best_alive": int(state.gm.alive[best].sum())}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = _vp_common.make_frame_step(filt, fs_vp.step_frame, frames, gen,
+                                      icov)
+
+    def warm(start):
+        state = filt.init_state(torch.zeros(3, device=dev), d=3)
         for j in range(start):
             state = step(state, j)
         return state
@@ -237,8 +282,8 @@ def fastslam_path(args, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("vp", "replay", "fastslam"),
-                    default="vp")
+    ap.add_argument("--path", choices=("vp", "replay", "fastslam",
+                                       "vp_fastslam"), default="vp")
     ap.add_argument("--frames", type=int, default=7230,
                     help="frames of the whole VP run (steps of the "
                          "FastSLAM run; at most 2999)")
@@ -257,15 +302,16 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    path = {"vp": vp_path, "replay": replay_path,
-            "fastslam": fastslam_path}[args.path]
-    phases = FS_PHASES if args.path == "fastslam" else PHASES
+    path = {"vp": vp_path, "replay": replay_path, "fastslam": fastslam_path,
+            "vp_fastslam": vp_fastslam_path}[args.path]
+    fastslam = args.path in ("fastslam", "vp_fastslam")
+    phases = FS_PHASES if fastslam else PHASES
     filt, record, warm, step = path(args, dev)
     print(json.dumps({**record, "card": card}), flush=True)
 
     # the profiled window
     state = warm(start)
-    (instrument_fastslam if args.path == "fastslam" else instrument)(filt)
+    (instrument_fastslam if fastslam else instrument)(filt)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -1,7 +1,9 @@
-"""rfs_slam_tpu_torch imports, and runs a few 2-D simulation steps of
-RB-PHD and MH-FastSLAM and three synthetic Victoria Park frames, in a
-process where JAX and the JAX package cannot be imported (the GPU machine
-has no JAX); the Hungarian kernel's launch plan."""
+"""rfs_slam_tpu_torch imports (its package walk reaching the checkpoint,
+timing and Victoria Park FastSLAM modules), and runs a few 2-D simulation
+steps of RB-PHD and MH-FastSLAM and three synthetic Victoria Park frames
+(RB-PHD with snapshots, MH-FastSLAM), in a process where JAX and the JAX
+package cannot be imported (the GPU machine has no JAX); the Hungarian
+kernel's launch plan."""
 
 import os
 import subprocess
@@ -29,6 +31,10 @@ SCRIPT = textwrap.dedent("""
         rfs_slam_tpu_torch.__path__, "rfs_slam_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ("utils.checkpoint", "utils.timing", "apps._vp_common",
+                 "apps.fastslam_victoriapark", "apps.vp_map_ospa",
+                 "apps.convertlogfiles"):
+        assert "rfs_slam_tpu_torch." + name in names, name
 
     import tempfile
     import torch
@@ -63,8 +69,17 @@ SCRIPT = textwrap.dedent("""
             XmlConfig(vp_synth.write_config(d + "/config.xml")),
             map_capacity=32, n_particles=4, device=torch.device("cpu"))
         frames = vp_io.load(d, z_capacity=24, ackerman=ack)
-    _, outs = vp_app.run(vfilt, icov, frames, torch.Generator().manual_seed(0))
-    assert outs["pose"].shape == (3, 4, 3)
+        _, outs = vp_app.run(vfilt, icov, frames,
+                             torch.Generator().manual_seed(0),
+                             ckpt_dir=d + "/ckpt", ckpt_every=2)
+        assert outs["pose"].shape == (3, 4, 3)
+        from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp
+        ffilt, icov, _ = fs_vp.build(
+            XmlConfig(d + "/config.xml"), map_capacity=32, n_particles=2,
+            hypotheses=3, device=torch.device("cpu"))
+        _, outs = fs_vp.run(ffilt, icov, frames,
+                            torch.Generator().manual_seed(0))
+        assert outs["pose"].shape == (3, 6, 3)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "rfs_slam_tpu")]
     assert not bad, bad

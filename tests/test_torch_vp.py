@@ -540,16 +540,21 @@ def test_synthetic_stream(stream, tmp_path):
 
 
 def test_app_runs_and_writes_logs(stream, tmp_path):
-    """run with scans and artificial clutter stays finite; the checkpoint
-    options raise; main() on the CPU writes the reference-format logs."""
+    """run with scans and artificial clutter stays finite; in chunks of 2
+    frames (the checkpoint loop's, tests/test_torch_checkpoint.py) it
+    gives the same outputs; main() on the CPU writes the reference-format
+    logs."""
     filt, fr = stream["filt"], app.head(stream["frames"], 4)
     state, outs = app.run(filt, stream["icov"], fr,
                           torch.Generator().manual_seed(0),
                           artificial_clutter=2.0)
     assert outs["pose"].shape == (4, P, 3) and np.isfinite(outs["pose"]).all()
     assert np.isfinite(outs["w"]).all() and outs["alive"].any()
-    with pytest.raises(NotImplementedError):
-        app.run(filt, stream["icov"], fr, torch.Generator(), ckpt_every=2)
+    _, chunked = app.run(filt, stream["icov"], fr,
+                         torch.Generator().manual_seed(0),
+                         artificial_clutter=2.0, ckpt_every=2)
+    for k, v in outs.items():
+        np.testing.assert_array_equal(chunked[k], v, err_msg=k)
     app.main(["--cfg", stream["cfg"], "--data", str(stream["dir"]),
               "--messages", "30", "--particles", "4", "--map-capacity", "32",
               "--device", "cpu", "--logdir", str(tmp_path)])

@@ -4,6 +4,8 @@ package: conversions between the two states and JAX's random draws.
 Arrays cross between the packages as numpy, on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -106,11 +108,31 @@ def predict_input_draws(key, n_particles):
     return key2, np.asarray(draws)
 
 
+def fastslam_input_draws(key, n_particles):
+    """``(next key, input draws [P, 2])`` of one JAX FastSLAM predict with
+    input noise: it splits ``key, k_prop`` (filters/fastslam.py:190-191),
+    each particle ``k_in, _`` of ``split(k_prop, P)``, and the input is
+    sampled with ``normal(k_in, (2,))``."""
+    key2, k_prop = jax.random.split(key)
+    draws = jax.vmap(lambda k: jax.random.normal(
+        jax.random.split(k)[0], (2,), jnp.float32))(
+            jax.random.split(k_prop, n_particles))
+    return key2, np.asarray(draws)
+
+
 def resample_offset(key):
     """The resampling offset the JAX update's resample phase draws from the
     particles' ``key``: ``uniform(split(key)[1])``."""
     return np.asarray(jax.random.uniform(jax.random.split(key)[1], (),
                                          jnp.float32))
+
+
+def host(obj):
+    """A port or JAX state as a nested dict of numpy arrays (JAX's particle
+    key dropped)."""
+    return {f.name: host(v) if dataclasses.is_dataclass(v := getattr(
+        obj, f.name)) else np.asarray(v)
+        for f in dataclasses.fields(obj) if f.name != "key"}
 
 
 def assert_gm_close(port_gm, jax_gm_, rtol=1e-4, atol=1e-5):
