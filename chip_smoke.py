@@ -83,8 +83,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    its snapshot in a temporary directory; outputs and final state equal
    bit for bit (floats as int32 views), with the frames where the run was
    cut and resumed;
+14. the library on the card, on phase 11's final state (after 2,000 frames:
+   the best particle's pose and map, M=512, D=3) and the 2,000th frame's
+   measurements (Zc=24, the last frame the state saw) through the Victoria
+   Park model: (a) ``jcbb_block_diag`` at that width, beam 32, under
+   torch's sync debug mode set to raise: assoc and n_paired equal to the
+   same call on CPU copies, md2 within 1e-5 relative; on a cut (the first
+   12 measurements, the 64 alive landmarks nearest the vehicle) its assoc
+   equal to the dense ``jcbb``'s on the card; the median of 25 CUDA-event
+   timings, and its peak device memory above its inputs (at most 64 MiB);
+   (b) ``spatial.build`` over the map's alive landmarks in x-y,
+   ``query_box`` around the vehicle equal to brute force, ``nearest`` of
+   each measurement's inverse-projected point equal to brute force's
+   distances (within 1e-6 relative) and indices (where its minimum is
+   unique), timed; (c) the five examples' ``main`` on the card, each
+   validating itself, with the ``hungarian`` launches of the Murty and
+   partition examples; (d) the native writers (``io/native.py`` over
+   ``native/rfsio.cpp``, built here) against the Python writers on phase
+   7's logged run (3,000 steps x 200 particles and the best map),
+   byte-equal, each writer's host seconds;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
+
+Each path phase (5, 5c, 7, 8, 11, 12) resets the card's peak-memory
+counters before its run, then checks its final map with
+``utils/integrity.check_map_integrity`` (log-odds weights for FastSLAM),
+which must be clean, and prints the run's peak device memory from
+``utils/memprofile.device_memory`` (one ``path_check`` line each).
 
 Each kernel's ``ms`` beside its twin's ``plain_ms`` is the median device
 time of 25 calls at its path's shape (see :func:`cuda_ms`); ``bound_ms``
@@ -165,6 +190,13 @@ VP_MH_DIVERGENCE_BOUND_M = 2.0
 VP_FS_CHUNK = 500          # frames a chunk of the chunked run
 VP_RESUME_FRAMES = 300     # phase 13: a run cut after half of these
 VP_FS_TABLE_FRAME = VP_FS_FRAMES  # the DA tables phase 9 checks
+# phase 14: the library on phase 11's final state
+JCBB_BEAM = 32
+LIBRARY_FRAME = VP_FS_FRAMES - 1   # the last frame phase 11's state saw
+JCBB_CUT = (12, 64)        # (measurements, nearest landmarks) of the cut
+JCBB_PEAK_LIMIT = 64 * 2**20
+SPATIAL_CELL_M = 5.0
+SPATIAL_BOX_M = 30.0       # half-width of the box query around the vehicle
 # f32 operations a search trip needs on each column: an unused one its
 # reduced cost (2), its compare with minv (1), the argmin (1) and minv's
 # step (1); a used one v's step (1) and its row's u (1)
@@ -295,6 +327,32 @@ def close(name, got, want, rtol, atol, mask=None):
     with np.errstate(invalid="ignore"):   # inf - inf where both are inf
         diff = np.where(same, 0.0, got - want)
     return float(np.max(np.abs(diff), initial=0.0))
+
+
+def reset_peak(torch, dev) -> int:
+    """Zero the card's peak-memory counters; the bytes allocated now."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def path_check(torch, name, gm, log_odds, held, dev):
+    """A path's final map through ``check_map_integrity`` (it must be
+    clean) and the path's peak device memory since :func:`reset_peak`
+    (which returned ``held``), one JSON line."""
+    from rfs_slam_tpu_torch.utils import memprofile
+    from rfs_slam_tpu_torch.utils.integrity import check_map_integrity
+
+    ok, report = check_map_integrity(gm, weights_are_log_odds=log_odds)
+    mem = memprofile.device_memory(dev)
+    print(json.dumps({
+        "path_check": name, "integrity_ok": ok, **report,
+        "peak_bytes_in_use": mem["peak_bytes_in_use"],
+        "held_before_bytes": held,
+        "peak_above_held_bytes": mem["peak_bytes_in_use"] - held,
+        "peak_bytes_reserved": mem["peak_bytes_reserved"]}), flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: map integrity {report}")
 
 
 def midrun(torch, app, loop, filt, gen, dt):
@@ -697,25 +755,32 @@ def hungarian_per_update(filt):
     return c.max_hypotheses + 1 if gated else c.max_hypotheses
 
 
-def fastslam_run(torch, loop, hk, kind, steps, dev):
+def fastslam_run(torch, loop, hk, kind, steps, dev, logged=False):
     """One FastSLAM run of :func:`fastslam_setup`, the step loop under
     torch's sync debug mode (a read-back inside it raises), then the
     divergence bound's other seeds in :data:`SEED_WORKERS` processes.
-    Returns ``(filter, final state, device inputs, generator, the DA
-    tables of FS_MID_STEP (or None), a record)``."""
+    ``logged``: also keep what the reference's logs hold
+    (``sim2d_common.log_recorder``).  Returns ``(filter, final state,
+    device inputs, generator, the DA tables of FS_MID_STEP (or None), a
+    record, the logs as numpy arrays (or None), dt)``."""
     filt, sim_cfg, data, inputs = fastslam_setup(kind, steps, dev)
     din = loop.device_inputs(inputs, dev)
     n = len(din[-1])
     best = torch.empty((n, 3), device=dev)
     mid = {}
+    logs, log_record = (loop.log_recorder(filt, n, dev) if logged
+                        else (None, None))
 
     def record(k, state):
         b = torch.argmax(state.particles.log_w).view(1)
         best[k] = state.particles.pose.index_select(0, b)[0]
         keep_mid_tables(filt, din, k, state, mid)
+        if log_record is not None:
+            log_record(k, state)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     hk.launches = 0
+    held = reset_peak(torch, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -726,6 +791,7 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hk.launches
+    path_check(torch, f"{kind} sim2d", state.gm, True, held, dev)
     c = filt.cfg
     n_upd = int(din[-1].sum())
     if launches != hungarian_per_update(filt) * n_upd:
@@ -746,7 +812,8 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
            "particles": c.n_particles, "particle_axis": filt.p_cap,
            "hypotheses": c.max_hypotheses, "nmz": c.nmz_capacity,
            "map_capacity": c.map_capacity, "wall_s": wall,
-           "steps_per_s": n / wall, "median_pose_err_m": err,
+           "steps_per_s": n / wall, "logged": logged,
+           "median_pose_err_m": err,
            "dead_reckoning_m": dr, "hungarian_launches": launches,
            "updates_with_measurements": n_upd, "finite": bool(finite),
            "live_particles": int(live.sum()),
@@ -765,7 +832,9 @@ def fastslam_run(torch, loop, hk, kind, steps, dev):
     rec["seeds"] = [0] + [s for part in parts for s in part]
     rec["seed_errors_m"] = [err] + [e for part in errs for e in part]
     rec["median_of_seeds_m"] = float(np.median(rec["seed_errors_m"]))
-    return filt, state, din, gen, mid.get("tables"), rec
+    if logs is not None:
+        logs = {k: v.cpu().numpy() for k, v in logs.items()}
+    return filt, state, din, gen, mid.get("tables"), rec, logs, sim_cfg.dt
 
 
 def vp_fastslam_setup(plain, cfg_path, hypotheses, n_frames, dev):
@@ -818,13 +887,15 @@ def vp_fastslam_run(torch, hk, plain, cfg_path, hypotheses, n_frames, seeds,
     n_meas = int(frames.z_mask.any(axis=1).sum())
     gen = torch.Generator(device=dev).manual_seed(0)
     hk.launches = 0
-    torch.cuda.synchronize()
+    held = reset_peak(torch, dev)
     t0 = time.perf_counter()
     state, outs = fs_vp.run(filt, icov, frames, gen, ckpt_every=VP_FS_CHUNK,
                             check_reads=True, progress=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hk.launches
+    path_check(torch, f"victoria_park fastslam H={hypotheses}", state.gm,
+               True, held, dev)
     if launches != hungarian_per_update(filt) * n_meas:
         raise AssertionError(f"hungarian: {launches} launches on the VP "
                              f"FastSLAM path (H={hypotheses}), {n_meas} "
@@ -947,9 +1018,10 @@ def vp_resume(torch, plain, cfg_path, dev):
 
 def vp_fastslam_phases(torch, hk, plain, cfg_path, dev):
     """The main runs of phases 11-12, each with its bound; returns
-    ``(runs, tables)``: ``(record, hypotheses, frames)`` for
-    :func:`submit_vp_seeds`, and the DA tables of frame VP_FS_TABLE_FRAME
-    on FastSLAM 1.0's final state (a ``hungarian`` case of phase 9)."""
+    ``(runs, tables, fs)``: ``(record, hypotheses, frames)`` for
+    :func:`submit_vp_seeds`, the DA tables of frame VP_FS_TABLE_FRAME
+    on FastSLAM 1.0's final state (a ``hungarian`` case of phase 9), and
+    that run's ``(filter, final state, stream)`` (phase 14)."""
     filt, state, stream, rec = vp_fastslam_run(
         torch, hk, plain, cfg_path, 1, VP_FS_FRAMES, VP_FS_BOUND_SEEDS, dev)
     rec["divergence_bound_m"] = VP_FS_DIVERGENCE_BOUND_M
@@ -963,7 +1035,7 @@ def vp_fastslam_phases(torch, hk, plain, cfg_path, dev):
                               VP_MH_BOUND_SEEDS, dev)
     rec["divergence_bound_m"] = VP_MH_DIVERGENCE_BOUND_M
     runs.append((rec, 3, VP_MH_FRAMES))
-    return runs, tables
+    return runs, tables, (filt, state, stream)
 
 
 def check_vp_accuracy(runs):
@@ -1093,6 +1165,233 @@ def check_hungarian(torch, hk, A, cases, timed):
     return rows[0]
 
 
+def jcbb_problem(torch, filt, state, stream, j, dev):
+    """Phase 14's problem: the best particle of ``state`` (its pose and
+    map) against frame ``j``'s measurements through the Victoria Park
+    model.  Returns a dict: ``innov [Z, M, 3]`` (bearing wrapped),
+    ``S_diag [M, 3, 3]``, ``z_mask [Z]``, ``m_mask [M]`` (alive),
+    ``pose [3]``, ``xy [M, 2]``, ``z [Z, 3]``."""
+    from rfs_slam_tpu_torch.core import gaussian, planar
+
+    b = torch.argmax(state.particles.log_w).view(1)
+    pose = state.particles.pose.index_select(0, b)[0]
+    mean = state.gm.mean.index_select(1, b)[:, 0]          # [3, M]
+    pred = filt.meas.measure_p(pose, mean,
+                               state.gm.cov.index_select(1, b)[:, 0])
+    z = torch.as_tensor(stream.z[j], dtype=torch.float32, device=dev)
+    innov = z[:, None, :] - torch.stack(pred.z, dim=-1)[None]
+    innov = torch.cat([innov[..., :1], gaussian.wrap_angle(innov[..., 1:2]),
+                       innov[..., 2:]], dim=-1)
+    S_diag = torch.stack([torch.stack(row, dim=-1)
+                          for row in planar.sym_rows(pred.S, 3)], dim=-2)
+    return dict(innov=innov.contiguous(), S_diag=S_diag.contiguous(),
+                z_mask=torch.as_tensor(stream.z_mask[j], device=dev),
+                m_mask=state.gm.alive.index_select(0, b)[0], pose=pose,
+                xy=mean[:2].T.contiguous(), z=z)
+
+
+def check_jcbb(torch, jc, prob, dev):
+    """Phase 14a: ``jcbb_block_diag`` at the full width on the card
+    against CPU copies, on the cut against the dense ``jcbb``, timed, and
+    its peak device memory above its inputs."""
+    args = tuple(prob[k] for k in ("innov", "S_diag", "z_mask", "m_mask"))
+    Z, M, D = prob["innov"].shape
+
+    def call(*a):
+        return jc.jcbb_block_diag(*(a or args), beam=JCBB_BEAM)
+
+    held = reset_peak(torch, dev)
+    torch.cuda.set_sync_debug_mode("error")    # no read-back inside
+    try:
+        assoc, n, md2 = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    c_assoc, c_n, c_md2 = call(*(a.cpu() for a in args))
+    np.testing.assert_array_equal(assoc.cpu().numpy(), c_assoc.numpy(),
+                                  err_msg="jcbb_block_diag: card vs CPU")
+    if int(n) != int(c_n):
+        raise AssertionError(f"jcbb_block_diag: n_paired {int(n)} on the "
+                             f"card, {int(c_n)} on the CPU")
+    close("jcbb_block_diag md2", md2, c_md2.to(dev), 1e-5, 0.0)
+    if peak > JCBB_PEAK_LIMIT:
+        raise AssertionError(f"jcbb_block_diag: peak {peak} bytes above its "
+                             f"inputs > {JCBB_PEAK_LIMIT}")
+
+    # the cut: the first measurements, the alive landmarks nearest the
+    # vehicle, against the dense search on the equivalent dense S
+    zc, mc = JCBB_CUT
+    d = torch.linalg.vector_norm(prob["xy"] - prob["pose"][:2], dim=-1)
+    near = torch.argsort(torch.where(prob["m_mask"], d, float("inf")),
+                         stable=True)[:mc]
+    innov_c = prob["innov"][:zc, near].contiguous()
+    S_c = prob["S_diag"][near]
+    S = torch.zeros((zc, mc, zc, mc, D, D), device=dev)
+    iz = torch.arange(zc, device=dev)[:, None]
+    im = torch.arange(mc, device=dev)[None, :]
+    S[iz, im, iz, im] = S_c.expand(zc, mc, D, D)
+    cut = (innov_c, S_c, prob["z_mask"][:zc], prob["m_mask"][near])
+    dense = jc.jcbb(innov_c, S, *cut[2:], beam=JCBB_BEAM)
+    block = call(*cut)
+    np.testing.assert_array_equal(block[0].cpu().numpy(),
+                                  dense[0].cpu().numpy(),
+                                  err_msg="jcbb cut: block-diagonal vs dense")
+    if int(block[1]) != int(dense[1]):
+        raise AssertionError("jcbb cut: n_paired differs from the dense "
+                             "search's")
+    ms, call_ms = cuda_ms(torch, call), cuda_ms(torch, call, queued=False)
+    print(json.dumps({
+        "phase14": "jcbb_block_diag", "Z": Z, "M": M, "D": D,
+        "beam": JCBB_BEAM, "z_valid": int(prob["z_mask"].sum()),
+        "m_alive": int(prob["m_mask"].sum()), "n_paired": int(n),
+        "md2": float(md2), "cpu_md2": float(c_md2),
+        "assoc_equal_cpu": True, "device_ms": ms, "call_ms": call_ms,
+        "peak_above_inputs_bytes": peak, "peak_limit_bytes": JCBB_PEAK_LIMIT,
+        "dense_S_bytes_at_this_width": Z * M * Z * M * D * D * 4,
+        "cut": {"Z": zc, "M": mc, "dense_S_bytes": S.numel() * 4,
+                "n_paired": int(dense[1]), "assoc_equal_dense": True}}),
+        flush=True)
+
+
+def check_spatial(torch, sp, filt, prob, dev):
+    """Phase 14b: the grid index over the map's alive landmarks in x-y, a
+    box query around the vehicle and the nearest landmark of each
+    measurement's inverse-projected point, against brute force on the
+    card, with the ring count and bucket cap at which the index is exact
+    (the true neighbour within the rings, no bucket beyond the cap)."""
+    xy, alive, pose = prob["xy"], prob["m_mask"], prob["pose"]
+    lo = xy[alive].amin(dim=0) - 1.0
+    hi = xy[alive].amax(dim=0) + 1.0
+    res = tuple(int(v) for v in torch.ceil((hi - lo) / SPATIAL_CELL_M)
+                .tolist())
+    origin = tuple(lo.tolist())
+
+    def build_index():
+        return sp.build(xy, alive, origin, SPATIAL_CELL_M, res)
+
+    idx = build_index()
+    blo, bhi = pose[:2] - SPATIAL_BOX_M, pose[:2] + SPATIAL_BOX_M
+    got, valid = sp.query_box(idx, blo.tolist(), bhi.tolist(), xy.shape[0])
+    want = torch.nonzero(alive & (xy >= blo).all(dim=-1)
+                         & (xy <= bhi).all(dim=-1))[:, 0]
+    if set(got[valid].tolist()) != set(want.tolist()):
+        raise AssertionError("query_box differs from brute force")
+
+    z = prob["z"][prob["z_mask"]]
+    q = filt.meas.inverse_p(pose, tuple(z[:, d] for d in range(3)))[0][:2].T
+    diff = xy[None] - q[:, None]
+    d2 = torch.where(alive[None], (diff * diff).sum(dim=-1), float("inf"))
+    two = torch.sort(d2, dim=-1).values[:, :2]
+    bf_idx = torch.argmin(d2, dim=-1)
+    unique = two[:, 0] < two[:, 1]
+    n_rings = int(torch.ceil(two[:, 0].max().sqrt() / SPATIAL_CELL_M)) + 1
+    cap = int((idx.starts[1:] - idx.starts[:-1]).max())
+
+    def nearest():
+        return sp.nearest(idx, q, n_rings=n_rings, bucket_cap=cap)
+
+    ni, nd, found = nearest()
+    if not bool(found.all()):
+        raise AssertionError("nearest: a query found no candidate")
+    close("nearest dist", nd, two[:, 0].sqrt(), 1e-6, 0.0)
+    np.testing.assert_array_equal(ni[unique].cpu().numpy(),
+                                  bf_idx[unique].cpu().numpy(),
+                                  err_msg="nearest: index vs brute force")
+    print(json.dumps({
+        "phase14": "spatial", "points": int(alive.sum()), "res": res,
+        "cell_m": SPATIAL_CELL_M, "box_half_m": SPATIAL_BOX_M,
+        "box_hits": int(want.numel()), "queries": int(q.shape[0]),
+        "unique_minima": int(unique.sum()), "n_rings": n_rings,
+        "bucket_cap": cap, "build_device_ms": cuda_ms(torch, build_index),
+        "query_box_device_ms": cuda_ms(
+            torch, lambda: sp.query_box(idx, blo.tolist(), bhi.tolist(),
+                                        xy.shape[0])),
+        "nearest_device_ms": cuda_ms(torch, nearest)}), flush=True)
+
+
+def check_examples(torch, hk, dev):
+    """Phase 14c: the five examples' ``main`` on the card, each validating
+    itself; the ``hungarian`` launches of the two that solve assignments."""
+    from rfs_slam_tpu_torch.examples import (
+        linear_assignment_lexicographic, linear_assignment_murty,
+        linear_assignment_partition, ospa_error, spatial_index)
+
+    rec = {"phase14": "examples"}
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for mod, kw in ((linear_assignment_murty, {}),
+                        (linear_assignment_partition, {}),
+                        (linear_assignment_lexicographic, {}),
+                        (ospa_error, {}),
+                        (spatial_index,
+                         {"out_file": os.path.join(d, "tree.txt")})):
+            name = mod.__name__.rsplit(".", 1)[-1]
+            hk.launches = 0
+            t0 = time.perf_counter()
+            mod.main(verbose=False, device=dev, **kw)
+            torch.cuda.synchronize()
+            rec[name] = {"wall_s": time.perf_counter() - t0,
+                         "hungarian_launches": hk.launches}
+    for name in ("linear_assignment_murty", "linear_assignment_partition"):
+        if rec[name]["hungarian_launches"] == 0:
+            raise AssertionError(f"{name}: no hungarian launch on the card")
+    print(json.dumps(rec), flush=True)
+
+
+def check_writers(logs_out, dt):
+    """Phase 14d: the native writers (built here) against the Python
+    writers on a logged run, byte for byte, each writer's host seconds."""
+    from rfs_slam_tpu_torch.io import logs, native
+
+    if native.lib() is None:
+        raise AssertionError("the native I/O library did not build")
+    n = len(logs_out["best"])
+    args = {"particlePose.dat": (np.arange(1, n + 1) * dt, logs_out["pose"],
+                                 logs_out["w"])}
+    args["landmarkEst.dat"] = (args["particlePose.dat"][0], logs_out["best"],
+                               logs_out["mean"], logs_out["cov"],
+                               logs_out["gm_w"], logs_out["alive"])
+    writers = {"native": {"particlePose.dat": native.write_particle_poses,
+                          "landmarkEst.dat": native.write_landmark_estimates},
+               "python": {"particlePose.dat": logs.python_particle_poses,
+                          "landmarkEst.dat": logs.python_landmark_estimates}}
+    files, secs = {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        for tag, fns in writers.items():
+            for name, fn in fns.items():
+                path = os.path.join(d, f"{tag}_{name}")
+                t0 = time.perf_counter()
+                fn(path, *args[name])
+                secs[f"{tag} {name}"] = time.perf_counter() - t0
+                with open(path, "rb") as f:
+                    files[tag, name] = f.read()
+    for name in args:
+        if files["native", name] != files["python", name]:
+            raise AssertionError(f"{name}: native and Python writers differ")
+    print(json.dumps({
+        "phase14": "native_io", "steps": n,
+        "particles": int(logs_out["pose"].shape[1]),
+        "landmark_rows": int(logs_out["alive"].sum()),
+        "bytes": {name: len(files["native", name]) for name in args},
+        "byte_equal": True, "host_s": secs,
+        "library": os.path.basename(native.library_path())}), flush=True)
+
+
+def library_phase(torch, hk, vp_fs, fs_logs, dev):
+    """Phase 14: the library on the card (see the module docstring)."""
+    from rfs_slam_tpu_torch.ops import jcbb as jc
+    from rfs_slam_tpu_torch.ops import spatial as sp
+
+    t0 = time.perf_counter()
+    filt, state, stream = vp_fs
+    prob = jcbb_problem(torch, filt, state, stream, LIBRARY_FRAME, dev)
+    check_jcbb(torch, jc, prob, dev)
+    check_spatial(torch, sp, filt, prob, dev)
+    check_examples(torch, hk, dev)
+    check_writers(*fs_logs)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def batchsim_cells(torch, batchsim, kernels, dev):
     """One 300-step cell of each filter kind through ``run_one``."""
     from rfs_slam_tpu_torch.io import sim2d_xml
@@ -1198,7 +1497,9 @@ def main(argv=None) -> int:
     gt, inputs = app.load_bl_dump(BL_DUMP)
     n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
     mu.launches = mg.launches = m3.launches = 0
+    held = reset_peak(torch, dev)
     final, best, wall = timed_run(torch, loop, filt, inputs, 0, dt, dev)
+    path_check(torch, "replay native/bl_dump", final.gm, False, held, dev)
     launches = {"map_update2d": mu.launches, "merge2d": mg.launches}
     for name, n in launches.items():
         if n != n_updates:
@@ -1228,12 +1529,13 @@ def main(argv=None) -> int:
     frames = vp_app.head(stream, VP_FRAMES)
     n_meas_frames = int(frames.z_mask.any(axis=1).sum())
     gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
     mu.launches = mg.launches = m3.launches = 0
+    held = reset_peak(torch, dev)
     t0 = time.perf_counter()
     vp_state, outs = vp_app.run(vp_filt, vp_icov, frames, gen)
     torch.cuda.synchronize()
     vp_wall = time.perf_counter() - t0
+    path_check(torch, "victoria_park rbphd", vp_state.gm, False, held, dev)
     launches["merge3d"] = m3.launches
     if m3.launches != n_meas_frames:
         raise AssertionError(f"merge3d: {m3.launches} launches on the "
@@ -1282,10 +1584,10 @@ def main(argv=None) -> int:
         flush=True)
 
     # ---- 7-8. FastSLAM 1.0 and MH-FastSLAM through the Hungarian kernel
-    fs_filt, _, _, _, fs_tables, fs_rec = fastslam_run(
-        torch, loop, hk, "fastslam", FS_STEPS, dev)
+    fs_filt, _, _, _, fs_tables, fs_rec, fs_logs, fs_dt = fastslam_run(
+        torch, loop, hk, "fastslam", FS_STEPS, dev, logged=True)
     launches["hungarian"] = fs_rec["hungarian_launches"]
-    mh_filt, mh_state, mh_din, mh_gen, _, mh_rec = fastslam_run(
+    mh_filt, mh_state, mh_din, mh_gen, _, mh_rec, _, _ = fastslam_run(
         torch, loop, hk, "mhfastslam", MH_STEPS, dev)
     for rec, bound_m in ((fs_rec, FS_DIVERGENCE_BOUND_M),
                          (mh_rec, MH_DIVERGENCE_BOUND_M)):
@@ -1294,7 +1596,8 @@ def main(argv=None) -> int:
     mh_inputs = recorded_update(torch, hk, mh_filt, mh_state, mh_din, mh_gen)
 
     # ---- 11-12. Victoria Park FastSLAM 1.0 and MH-FastSLAM, main runs
-    vp_runs, vp_tables = vp_fastslam_phases(torch, hk, vp_plain, vp_cfg, dev)
+    vp_runs, vp_tables, vp_fs = vp_fastslam_phases(torch, hk, vp_plain,
+                                                   vp_cfg, dev)
 
     # ---- 9. the Hungarian kernel against its twin (timed alone); the
     # kernel table's row is timed on the FastSLAM tables
@@ -1303,6 +1606,10 @@ def main(argv=None) -> int:
                                       vp_tables, dev),
         [(f"FastSLAM DA tables, step {FS_MID_STEP}", fs_tables),
          (f"VP FastSLAM DA tables, frame {VP_FS_TABLE_FRAME}", vp_tables)])
+
+    # ---- 14. the library on phase 11's final state, before the seed
+    # workers share the card
+    library_phase(torch, hk, vp_fs, (fs_logs, fs_dt), dev)
 
     # the VP bounds' seeds in worker processes, beside phases 10 and 13:
     # neither holds a time to a bound

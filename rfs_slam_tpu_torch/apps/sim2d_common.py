@@ -141,9 +141,16 @@ def run_logged(filt, inputs, gen: torch.Generator, dt: float):
     ``(final state, outs)``, ``outs`` numpy arrays: ``pose [n, P, 3]``,
     ``w [n, P]``, ``best [n]``, ``mean [n, M, 2]``, ``cov [n, M, 3]``
     (packed), ``gm_w [n, M]``, ``alive [n, M]``."""
-    dev = gen.device
-    din = device_inputs(inputs, dev)
-    n = len(din[-1])
+    din = device_inputs(inputs, gen.device)
+    out, record = log_recorder(filt, len(din[-1]), gen.device)
+    state = steps(filt, din, gen, dt, record)
+    return state, {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def log_recorder(filt, n: int, dev):
+    """``(outs, record)``: device buffers for :func:`run_logged`'s outputs
+    over ``n`` steps and the ``on_step`` callback that fills them (it reads
+    nothing back)."""
     P = getattr(filt, "p_cap", filt.cfg.n_particles)
     M = filt.cfg.map_capacity
     out = dict(pose=torch.empty((n, P, 3), device=dev),
@@ -166,8 +173,7 @@ def run_logged(filt, inputs, gen: torch.Generator, dt: float):
         out["gm_w"][k] = gm.w.index_select(0, b)[0]
         out["alive"][k] = gm.alive.index_select(0, b)[0]
 
-    state = steps(filt, din, gen, dt, record)
-    return state, {k: v.cpu().numpy() for k, v in out.items()}
+    return out, record
 
 
 def write_logs(logdir, cfg_path, data, dt, outs):

@@ -1,5 +1,8 @@
 """Reference-format .dat log writers/readers (a copy of the JAX package's
-``io/logs.py``, without its native writers).
+``io/logs.py``).  particlePose.dat and landmarkEst.dat go through the
+native writers of :mod:`rfs_slam_tpu_torch.io.native` when its library
+builds, else through the Python writers ``python_*`` here; both write the
+same bytes.
 
 The reference's analysis and animation toolchain consumes fixed-column
 whitespace-separated text logs (formats per rbphdslam2dSim.cpp:369-441 and
@@ -22,6 +25,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from rfs_slam_tpu_torch.io import native
 
 
 def _open(logdir: str, name: str):
@@ -69,8 +74,16 @@ def write_particle_poses(logdir: str, times, poses, weights) -> None:
     """particlePose.dat: t i x y theta w with blank separators
     (rbphdslam2dSim.cpp:609-632).  ``poses``: [T, P, 3]; ``weights``: [T, P].
     """
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, "particlePose.dat")
+    if not native.write_particle_poses(path, times, poses, weights):
+        python_particle_poses(path, times, poses, weights)
+
+
+def python_particle_poses(path: str, times, poses, weights) -> None:
+    """The Python particlePose.dat writer (the path without a compiler)."""
     T, P, _ = poses.shape
-    with _open(logdir, "particlePose.dat") as f:
+    with open(path, "w") as f:
         # initial block at t=0, weight 1.0 (rbphdslam2dSim.cpp:536-541)
         for i in range(P):
             f.write("%f   %d   %f   %f   %f   1.0\n" % (0.0, i, 0.0, 0.0, 0.0))
@@ -88,16 +101,24 @@ def write_landmark_estimates(logdir: str, times, best_idx, means, covs,
     (rbphdslam2dSim.cpp:634-641).  ``means``: [T, M, 2]; ``covs``: [T, M, 2, 2]
     (or packed [T, M, 3]); ``weights``/``alive``: [T, M].
     """
-    T = means.shape[0]
-    with _open(logdir, "landmarkEst.dat") as f:
-        for k in range(T):
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, "landmarkEst.dat")
+    packed = covs if covs.ndim == 3 else np.stack(
+        [covs[..., 0, 0], covs[..., 0, 1], covs[..., 1, 1]], axis=-1)
+    args = (times, best_idx, means[..., :2], packed, weights, alive)
+    if not native.write_landmark_estimates(path, *args):
+        python_landmark_estimates(path, *args)
+
+
+def python_landmark_estimates(path: str, times, best_idx, means, covs,
+                              weights, alive) -> None:
+    """The Python landmarkEst.dat writer (packed ``covs`` [T, M, 3])."""
+    with open(path, "w") as f:
+        for k in range(means.shape[0]):
             for m in range(means.shape[1]):
                 if not alive[k, m]:
                     continue
-                if covs.ndim == 4:
-                    sxx, sxy, syy = covs[k, m, 0, 0], covs[k, m, 0, 1], covs[k, m, 1, 1]
-                else:
-                    sxx, sxy, syy = covs[k, m]
+                sxx, sxy, syy = covs[k, m]
                 f.write("%f   %d   %f   %f      %f   %f   %f   %f\n" % (
                     times[k], best_idx[k], means[k, m, 0], means[k, m, 1],
                     sxx, sxy, syy, weights[k, m]))

@@ -23,9 +23,13 @@ import os
 
 import numpy as np
 
+from rfs_slam_tpu_torch.io import native
+
 
 def _loadtxt(path):
-    return np.loadtxt(path)
+    """np.loadtxt through the native parser where its library builds."""
+    out = native.loadtxt(path)
+    return out if out is not None else np.loadtxt(path)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """Process models as batched functions (port of the JAX package's
-``models/motion.py``: the 2-D simulation's Odometry2D and the Victoria
-Park vehicle's Ackerman2D, and the static landmark model).
+``models/motion.py``: the 2-D simulation's Odometry2D, the Victoria
+Park vehicle's Ackerman2D, Odometry1D, and the static landmark model).
 
 ``sample`` adds input and/or additive white noise like
 ``ProcessModel::sample`` (ProcessModel.hpp:125-150).  The standard-normal
@@ -21,20 +21,13 @@ import torch
 from rfs_slam_tpu_torch.core import gaussian, planar
 
 
-def _draw(shape, like, gen):
-    return torch.randn(shape, generator=gen, dtype=like.dtype,
-                       device=like.device)
-
-
 def _sample_input(pose, u, use_input_noise, input_cov, input_noise, gen):
     """The input broadcast over the particles, sampled from N(u, U) when
     ``use_input_noise`` (ProcessModel.hpp:133-140)."""
     u = u.expand(pose.shape[:-1] + u.shape[-1:])
     if input_cov is None or not use_input_noise:
         return u
-    if input_noise is None:
-        input_noise = _draw(u.shape, u, gen)
-    return gaussian.sample(u, input_cov, input_noise)
+    return gaussian.sample(u, input_cov, input_noise, gen)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +62,33 @@ class Odometry2D:
         out = self.step(pose, u, dt)
         if not use_model_noise:
             return out
-        if noise is None:
-            noise = _draw(out.shape, out, gen)
-        out = gaussian.sample(out, self.Q, noise)
+        out = gaussian.sample(out, self.Q, noise, gen)
         return torch.cat([out[..., :2], gaussian.wrap_angle(out[..., 2:])],
                          dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Odometry1D:
+    """1-D odometry model (reference: ProcessModel_Odometry1D.cpp): the
+    pose moves by the input; ``Q`` [1, 1]."""
+
+    Q: torch.Tensor
+
+    def step(self, pose: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
+        return pose + u
+
+    def sample(self, pose: torch.Tensor, u: torch.Tensor, dt,
+               noise: torch.Tensor | None = None,
+               gen: torch.Generator | None = None,
+               use_model_noise: bool = True, use_input_noise: bool = False,
+               input_cov: torch.Tensor | None = None,
+               input_noise: torch.Tensor | None = None) -> torch.Tensor:
+        u = _sample_input(pose, u, use_input_noise, input_cov, input_noise,
+                          gen)
+        out = self.step(pose, u, dt)
+        if not use_model_noise:
+            return out
+        return gaussian.sample(out, self.Q, noise, gen)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +132,7 @@ class Ackerman2D:
         out = self.step(pose, u, dt)
         if not use_model_noise:
             return out
-        if noise is None:
-            noise = _draw(out.shape, out, gen)
-        return gaussian.sample(out, self.Q, noise)
+        return gaussian.sample(out, self.Q, noise, gen)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,6 +3,7 @@ the JAX package's ``ops/gm.py``).
 
 * ``prune``   — weight-threshold pruning (GaussianMixture.hpp:477-521);
 * ``compact`` — sort by weight (dead slots last) and keep ``capacity``;
+* ``append``  — append new Gaussians, then ``compact``;
 * ``replace_weakest`` — insert new Gaussians over the weakest slots, the
   exact fixed-shape equivalent of append + compact;
 * ``merge``   — the pairwise merge fixpoint (GaussianMixture.hpp:394-475) in
@@ -54,6 +55,21 @@ def compact(gm: GMState, capacity: int) -> GMState:
     slots last (the fixed-shape ``sortByWeight``, GaussianMixture.hpp:523-529)."""
     _, idx = planar.topk_stable(_score(gm.w, gm.alive), capacity)
     return take_slots(gm, idx)
+
+
+def append(gm: GMState, mean, cov, w, alive,
+           capacity: int | None = None) -> GMState:
+    """Append new Gaussians (w_prev = 0, GaussianMixture.hpp:267-308) and
+    compact to ``capacity`` (default: the map's).  ``mean`` [D, P, K],
+    ``cov`` [T, P, K] planes, ``w`` / ``alive`` [P, K]."""
+    out = GMState(
+        mean=torch.cat([gm.mean, mean], dim=2),
+        cov=torch.cat([gm.cov, cov], dim=2),
+        w=torch.cat([gm.w, w], dim=1),
+        w_prev=torch.cat([gm.w_prev, torch.zeros_like(w)], dim=1),
+        alive=torch.cat([gm.alive, alive], dim=1),
+    )
+    return compact(out, capacity or gm.capacity)
 
 
 def replace_weakest(gm: GMState, mean, cov, w, alive,

@@ -1,9 +1,10 @@
 """rfs_slam_tpu_torch imports (its package walk reaching the checkpoint,
-timing and Victoria Park FastSLAM modules), and runs a few 2-D simulation
-steps of RB-PHD and MH-FastSLAM and three synthetic Victoria Park frames
-(RB-PHD with snapshots, MH-FastSLAM), in a process where JAX and the JAX
-package cannot be imported (the GPU machine has no JAX); the Hungarian
-kernel's launch plan."""
+timing and Victoria Park FastSLAM modules, the library modules and the
+examples), and runs a block-diagonal JCBB search, a nearest-point query, a
+few 2-D simulation steps of RB-PHD and MH-FastSLAM and three synthetic
+Victoria Park frames (RB-PHD with snapshots, MH-FastSLAM), in a process
+where JAX and the JAX package cannot be imported (the GPU machine has no
+JAX); the Hungarian kernel's launch plan."""
 
 import os
 import subprocess
@@ -33,8 +34,26 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     for name in ("utils.checkpoint", "utils.timing", "apps._vp_common",
                  "apps.fastslam_victoriapark", "apps.vp_map_ospa",
-                 "apps.convertlogfiles"):
+                 "apps.convertlogfiles", "ops.jcbb", "ops.spatial",
+                 "core.frame2d", "io.native", "utils.integrity",
+                 "utils.memprofile", "examples.linear_assignment_murty",
+                 "examples.linear_assignment_partition",
+                 "examples.linear_assignment_lexicographic",
+                 "examples.ospa_error", "examples.spatial_index"):
         assert "rfs_slam_tpu_torch." + name in names, name
+
+    import torch
+    from rfs_slam_tpu_torch.ops import jcbb, spatial
+    innov = torch.zeros((3, 4, 2))
+    innov[:, 2] = 9.0
+    assoc, n, _ = jcbb.jcbb_block_diag(
+        innov, torch.eye(2).expand(4, 2, 2), torch.ones(3, dtype=torch.bool),
+        torch.ones(4, dtype=torch.bool), beam=8)
+    assert assoc.tolist() == [0, 1, 3] and int(n) == 3
+    pts = torch.tensor([[0.5, 0.5], [2.5, 1.5], [3.5, 3.5]])
+    idx = spatial.build(pts, torch.ones(3, dtype=torch.bool), (0.0, 0.0),
+                        1.0, (4, 4))
+    assert spatial.nearest(idx, torch.tensor([[2.2, 1.9]]))[0].tolist() == [1]
 
     import tempfile
     import torch
