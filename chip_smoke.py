@@ -102,6 +102,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``native/rfsio.cpp``, built here) against the Python writers on phase
    7's logged run (3,000 steps x 200 particles and the best map),
    byte-equal, each writer's host seconds;
+15. the three one-hypothesis paths sharded over the most ranks of 4, 2
+   and 1 that the cards hold (P=200 and P=100 split evenly over each; 3
+   would not), one process a card over NCCL (``parallel/mesh.py``,
+   driven by ``parallel/dryrun.py``), each against its
+   unsharded run in this process: the ``native/bl_dump`` replay (P=200,
+   M=128, Zc=40) and FastSLAM 1.0 on ``sim2d`` (P=200, M=128, NMZ=32), 160
+   steps each (the 100-step ground-truth lock, then 60 free steps), and
+   Victoria Park RB-PHD (P=100, M=512, Zc=24, D=3), 60 frames, every loop
+   under torch's sync debug mode set to raise; on a machine with one card,
+   again over two ranks sharing it through gloo (NCCL refuses a card
+   twice; gloo's collectives wait on the host, so without the sync
+   check); ``parent``, the resampling flags and every integer and bool
+   field of the final state equal, pose, ``log_w`` and ``w`` within
+   ``test_sharding.py``'s multistep tolerances, every other float field
+   within 1e-4 (relative above 1); one JSON line a path and run (ranks, backend, devices,
+   launches and collectives a step, the bytes each rank receives a step,
+   steps/s sharded beside unsharded, resamples, ancestors taken from
+   another rank);
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -189,6 +207,11 @@ VP_FS_DIVERGENCE_BOUND_M = 2.0
 VP_MH_DIVERGENCE_BOUND_M = 2.0
 VP_FS_CHUNK = 500          # frames a chunk of the chunked run
 VP_RESUME_FRAMES = 300     # phase 13: a run cut after half of these
+# phase 15: the 2-D paths' 100-step ground-truth lock, then 60 free steps
+SHARDED_PATHS = (("replay", 160), ("vp", 60), ("fastslam", 160))
+SHARDED_TIMEOUT_S = 300
+# rank counts that split every sharded path's particles (200, 100) evenly
+SHARDED_RANKS = (4, 2, 1)
 VP_FS_TABLE_FRAME = VP_FS_FRAMES  # the DA tables phase 9 checks
 # phase 14: the library on phase 11's final state
 JCBB_BEAM = 32
@@ -1392,6 +1415,43 @@ def library_phase(torch, hk, vp_fs, fs_logs, dev):
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def sharded_phase(torch):
+    """Phase 15: :data:`SHARDED_PATHS` sharded over the most ranks of
+    :data:`SHARDED_RANKS` that the cards hold (NCCL, one a card) against
+    their unsharded runs (``parallel/dryrun.compare_paths``), one JSON
+    line a path; on one card
+    also over two ranks sharing it through gloo (NCCL refuses a card
+    twice).  Each path's kernels must launch in its sharded run, as often
+    a step as unsharded."""
+    from rfs_slam_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = [dict(ranks=max(r for r in SHARDED_RANKS if r <= cards))]
+    print(f"phase 15: {runs[0]['ranks']} NCCL ranks over {cards} cards",
+          flush=True)
+    if cards == 1:
+        # gloo stages a CUDA tensor through the host and waits on it, so
+        # this loop runs without the sync check
+        runs.append(dict(ranks=2, backend="gloo", sync_check=False))
+    for run in runs:
+        for rec in dryrun.compare_paths(SHARDED_PATHS, device_type="cuda",
+                                      timeout_s=SHARDED_TIMEOUT_S, **run):
+            rec["sync_check"] = run.get("sync_check", True)
+            print(json.dumps({"phase15": rec.pop("path"), **rec}),
+                  flush=True)
+            if not rec["ok"]:
+                raise AssertionError(f"phase 15: the sharded run differs "
+                                     f"from the unsharded one: {rec}")
+            for name, n in rec["launches_per_step"].items():
+                if not n or n != rec["plain_launches_per_step"][name]:
+                    raise AssertionError(
+                        f"phase 15: {name} launched {n} times a step "
+                        f"sharded, {rec['plain_launches_per_step']} "
+                        f"unsharded")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def batchsim_cells(torch, batchsim, kernels, dev):
     """One 300-step cell of each filter kind through ``run_one``."""
     from rfs_slam_tpu_torch.io import sim2d_xml
@@ -1620,6 +1680,9 @@ def main(argv=None) -> int:
         # ---- 13. resume on the card, both Victoria Park apps
         vp_resume(torch, vp_plain, vp_cfg, dev)
         collect_vp_seeds(submitted)
+
+    # ---- 15. the one-hypothesis paths sharded, once the card is free
+    sharded_phase(torch)
 
     # the accuracy of phases 7-8 (checked once every phase has printed):
     # every seed's run below dead reckoning, their median within the bound

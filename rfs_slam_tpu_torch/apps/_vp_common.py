@@ -54,7 +54,7 @@ def add_clutter(filt, frames, rate: float, seed: int = 0):
 
 def make_frame_step(filt, step_frame, frames, gen: torch.Generator,
                     input_cov: torch.Tensor, artificial_clutter: float = 0.0,
-                    clutter_seed: int = 0):
+                    clutter_seed: int = 0, mesh=None):
     """The stream's inputs (with :func:`add_clutter`) put on ``gen``'s
     device once, and ``step(state, j) -> state``: ``step_frame(filt, state,
     meas, dts, u, noise, input_cov, z, z_mask, has_z, gen)`` on frame ``j``
@@ -62,6 +62,11 @@ def make_frame_step(filt, step_frame, frames, gen: torch.Generator,
 
     ``dts`` are rounded to float32 on the host, as the JAX package feeds
     them, and are 0 on the frame's padding.
+
+    Under ``mesh`` (``parallel/mesh.py``) the state is this rank's block of
+    the particle axis: each substep's input noise is drawn whole, ``[P,
+    DU]``, in the unsharded run's order, and the rank keeps its block
+    (``step_frame``'s ``input_noise``); ``step_frame`` gets the mesh.
     """
     dev = gen.device
     z, z_mask = add_clutter(filt, frames, artificial_clutter, clutter_seed)
@@ -77,8 +82,14 @@ def make_frame_step(filt, step_frame, frames, gen: torch.Generator,
 
     def step(state, j):
         meas = filt.meas if scans is None else filt.meas.with_scan(scans[j])
+        sharded = {}
+        if mesh is not None:
+            sharded = dict(mesh=mesh, input_noise=[
+                mesh.randn_block(gen, u_d.shape[-1]) if dt and nz else None
+                for dt, nz in zip(dts[j], noise[j])])
         return step_frame(filt, state, meas, dts[j], u_d[j], noise[j],
-                          input_cov, z_d[j], zm_d[j], bool(has_z[j]), gen)
+                          input_cov, z_d[j], zm_d[j], bool(has_z[j]), gen,
+                          **sharded)
 
     return step
 

@@ -103,7 +103,7 @@ def build(cfg: XmlConfig, z_capacity: int = Z_CAPACITY,
 
 def step_frame(filt: FastSLAMFilter, state, meas, dts, u, noise, input_cov,
                z, z_mask, has_z: bool, gen: torch.Generator | None = None,
-               input_noise=None, u0=None):
+               input_noise=None, u0=None, mesh=None):
     """One lidar frame (fastslam_VictoriaPark.cpp's event loop, the JAX
     app's ``frame_step``): the predict substeps, then the update with the
     frame's model ``meas``.
@@ -111,7 +111,8 @@ def step_frame(filt: FastSLAMFilter, state, meas, dts, u, noise, input_cov,
     ``dts`` [K] float32 and ``noise`` [K] bool are host arrays; ``u`` [K, 2]
     the held inputs.  Substeps with dt = 0 (the frame's padding) are exact
     no-ops and are skipped.  ``input_noise`` [K, P, 2] and ``u0`` inject
-    the draws, else they come from ``gen``.
+    the draws, else they come from ``gen``.  ``mesh``: the state is this
+    rank's block of the particle axis (``_vp_common.make_frame_step``).
     """
     for i in np.nonzero(dts)[0]:
         state = filt.predict(
@@ -119,7 +120,7 @@ def step_frame(filt: FastSLAMFilter, state, meas, dts, u, noise, input_cov,
             use_input_noise=bool(noise[i]), input_cov=input_cov,
             input_noise=None if input_noise is None else input_noise[i])
     return filt.update(state, z, z_mask, u0=u0, gen=gen, has_z=has_z,
-                       meas=meas)
+                       meas=meas, mesh=mesh)
 
 
 def run(filt: FastSLAMFilter, input_cov: torch.Tensor,

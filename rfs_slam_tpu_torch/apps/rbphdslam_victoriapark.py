@@ -155,7 +155,7 @@ def head(frames: vp_io.VPFrames, n: int) -> vp_io.VPFrames:
 
 def step_frame(filt: RBPHDFilter, state, meas, dts, u, noise, input_cov,
                z, z_mask, has_z: bool, gen: torch.Generator | None = None,
-               input_noise=None, u0=None):
+               input_noise=None, u0=None, mesh=None):
     """One lidar frame: births with the frame's model ``meas`` (the first
     predict after an update checks births, rbphdslam_VictoriaPark.cpp:
     512-517), the predict substeps, then the update.
@@ -163,7 +163,8 @@ def step_frame(filt: RBPHDFilter, state, meas, dts, u, noise, input_cov,
     ``dts`` [K] float32 and ``noise`` [K] bool are host arrays; ``u`` [K, 2]
     the held inputs.  Substeps with dt = 0 (the frame's padding) are exact
     no-ops and are skipped.  ``input_noise`` [K, P, 2] and ``u0`` inject
-    the draws, else they come from ``gen``.
+    the draws, else they come from ``gen``.  ``mesh``: the state is this
+    rank's block of the particle axis (``_vp_common.make_frame_step``).
     """
     gm, birth = filt._add_birth_gaussians(state, meas)
     state = dataclasses.replace(state, gm=gm, birth=birth)
@@ -174,7 +175,7 @@ def step_frame(filt: RBPHDFilter, state, meas, dts, u, noise, input_cov,
             input_noise=None if input_noise is None else input_noise[i],
             birth_check=False)
     return filt.update(state, z, z_mask, u0=u0, gen=gen, has_z=has_z,
-                       meas=meas)
+                       meas=meas, mesh=mesh)
 
 
 def run(filt: RBPHDFilter, input_cov: torch.Tensor, frames: vp_io.VPFrames,

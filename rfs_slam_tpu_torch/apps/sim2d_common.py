@@ -23,6 +23,7 @@ from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
 from rfs_slam_tpu_torch.models.measurement import RangeBearing
 from rfs_slam_tpu_torch.models.motion import Odometry2D, StaticLandmark
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates
+from rfs_slam_tpu_torch.parallel import mesh as mesh_lib
 
 GT_LOCK_STEPS = 100
 ERR_FROM_STEP = 150  # pose error is the median over steps >= 150
@@ -99,39 +100,59 @@ def device_inputs(inputs, dev: torch.device):
             np.asarray(lock), np.asarray(z_mask).any(axis=1))
 
 
-def steps(filt, dinputs, gen: torch.Generator, dt: float, on_step):
+def steps(filt, dinputs, gen: torch.Generator, dt: float, on_step,
+          mesh=None):
     """The step loop over :func:`device_inputs`: predict, the ground-truth
     lock, update (empty updates skipped from the host flags), then
     ``on_step(k, state)``.  Nothing here reads from the device.  Returns
-    the final state."""
+    the final state.
+
+    Under ``mesh`` (``parallel/mesh.py``) the state is this rank's block of
+    the particle axis: every rank draws the whole ``[P, 3]`` motion noise
+    from ``gen`` (seeded alike on every rank) and keeps its block, so the
+    draws are the unsharded run's, and the returned state is the block.
+    """
     odo, z, z_mask, gt, lock, has_z = dinputs
     state = filt.init_state(torch.zeros(3, device=odo.device))
+    if mesh is not None:
+        state = mesh_lib.shard_state(state, mesh)
     for k in range(len(lock)):
-        state = filt.predict(state, odo[k], dt, gen=gen)
+        noise = None if mesh is None else mesh.randn_block(gen, 3)
+        state = filt.predict(state, odo[k], dt, gen=gen, noise=noise)
         if lock[k]:
             pose = gt[k].expand_as(state.particles.pose).contiguous()
             state = dataclasses.replace(
                 state, particles=dataclasses.replace(state.particles,
                                                      pose=pose))
         state = filt.update(state, z[k], z_mask[k], gen=gen,
-                            has_z=bool(has_z[k]))
+                            has_z=bool(has_z[k]), mesh=mesh)
         on_step(k, state)
     return state
 
 
-def run(filt, inputs, gen: torch.Generator, dt: float):
+def run(filt, inputs, gen: torch.Generator, dt: float, mesh=None):
     """One whole run on ``gen``'s device.  Returns ``(final state, best
-    particle pose per step [n, 3] numpy)``; the only device-to-host copy is
-    the pose log at the end."""
+    particle pose per step [n, 3] numpy)``: each step's weights and poses
+    are logged on the device and the best particle is taken once after the
+    loop, so the only device-to-host copy is the best poses at the end.
+    Under ``mesh`` the state is this rank's block, and the logs are
+    gathered over the ranks first, so the best particle is the argmax of
+    the global weights."""
     din = device_inputs(inputs, gen.device)
-    best = torch.empty((len(din[-1]), 3), device=gen.device)
+    n = len(din[-1])
+    P = (getattr(filt, "p_cap", filt.cfg.n_particles) if mesh is None
+         else mesh.p_local)
+    lw = torch.empty((n, P), device=gen.device)
+    poses = torch.empty((n, P, 3), device=gen.device)
 
-    def record(k, state):
-        # index_select: indexing by a 0-dim tensor would read it back
-        b = torch.argmax(state.particles.log_w).view(1)
-        best[k] = state.particles.pose.index_select(0, b)[0]
+    def log(k, state):
+        lw[k] = state.particles.log_w
+        poses[k] = state.particles.pose
 
-    state = steps(filt, din, gen, dt, record)
+    state = steps(filt, din, gen, dt, log, mesh)
+    if mesh is not None:
+        lw, poses = mesh.all_gather(lw, 1), mesh.all_gather(poses, 1)
+    best = poses[torch.arange(n, device=gen.device), lw.argmax(dim=1)]
     return state, best.cpu().numpy()
 
 

@@ -36,6 +36,22 @@ def pack_sym(S: torch.Tensor) -> torch.Tensor:
     return torch.stack([S[..., i, j] for i in range(d) for j in range(i, d)])
 
 
+def unpack_sym(s: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed ``[T, ...]`` -> dense ``[..., D, D]`` (boundary use only)."""
+    r = sym_rows(s, d)
+    return torch.stack([torch.stack(r[i], dim=-1) for i in range(d)], dim=-2)
+
+
+def pack_vec(v: torch.Tensor) -> torch.Tensor:
+    """Dense ``[..., D]`` -> planes ``[D, ...]`` (boundary use only)."""
+    return torch.movedim(v, -1, 0)
+
+
+def unpack_vec(p: torch.Tensor) -> torch.Tensor:
+    """Planes ``[D, ...]`` -> dense ``[..., D]`` (boundary use only)."""
+    return torch.movedim(p, 0, -1)
+
+
 def det_sym(s, d: int):
     """Determinant of a packed symmetric ``[T, ...]``, D in 1..3 (the JAX
     package's formulas and summation order: gates flip on them)."""

@@ -4,6 +4,13 @@ Port of the JAX package's ``core/state.py``.  Landmark means and covariances are
 plane-major: ``mean[D, P, M]``, packed symmetric ``cov[T, P, M]``
 (:mod:`rfs_slam_tpu_torch.core.planar`).  Containers are immutable by
 convention: phases build new ones with :func:`dataclasses.replace`.
+
+Each per-particle field declares its particle axis (:func:`rows`: 0 for
+``[P, ...]``, 1 for the plane-major ``[D|T, P, M]``); a field without one
+is the same for every particle.  :func:`map_rows` applies a function to the
+per-particle fields of a state, and :func:`pack_rows` /
+:func:`unpack_rows` carry them as one ``[P, bytes]`` buffer, the unit the
+particle-axis collectives of :mod:`rfs_slam_tpu_torch.parallel.mesh` move.
 """
 
 from __future__ import annotations
@@ -14,6 +21,85 @@ import math
 import torch
 
 from rfs_slam_tpu_torch.core import planar
+
+PARTICLE_AXIS_KEY = "particle_axis"
+_ROW_ALIGN = 8  # bytes: every field's columns start on an int64 boundary
+
+
+def rows(axis: int = 0):
+    """A dataclass field whose axis ``axis`` is the particle axis."""
+    return dataclasses.field(metadata={PARTICLE_AXIS_KEY: axis})
+
+
+def map_rows(fn, obj):
+    """``obj`` with every per-particle tensor ``x`` replaced by ``fn(x,
+    axis)``, the other fields kept.  ``obj`` is one of the state
+    dataclasses (nested ones are walked) or a dict of them and of tensors
+    whose leading axis is the particle axis.  Fields are visited in
+    declaration order, dict entries in insertion order."""
+    if isinstance(obj, dict):
+        return {k: map_rows(fn, v) if dataclasses.is_dataclass(v)
+                else fn(v, 0) for k, v in obj.items()}
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            changes[f.name] = map_rows(fn, v)
+        elif f.metadata.get(PARTICLE_AXIS_KEY) is not None:
+            changes[f.name] = fn(v, f.metadata[PARTICLE_AXIS_KEY])
+    return dataclasses.replace(obj, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowLayout:
+    """Where each per-particle field of a state sits in a packed row:
+    ``(byte offset, byte count, shape of one particle's entry, dtype,
+    particle axis)`` per field, in :func:`map_rows` order, and the row's
+    width in bytes."""
+
+    fields: tuple
+    width: int
+
+
+def pack_rows(obj):
+    """Every per-particle field of ``obj`` as one ``uint8 [P, width]``
+    buffer, each particle's entries in one row (floats and ints by their
+    bytes, bools as one byte).  Returns ``(buffer, RowLayout)``."""
+    leaves, fields, off = [], [], 0
+
+    def visit(x, axis):
+        nonlocal off
+        per = x.movedim(axis, 0)
+        n = per[0].numel() * x.element_size()
+        fields.append((off, n, tuple(per.shape[1:]), x.dtype, axis))
+        leaves.append(per)
+        off += -(-n // _ROW_ALIGN) * _ROW_ALIGN
+        return x
+
+    map_rows(visit, obj)
+    P = leaves[0].shape[0]
+    buf = torch.empty((P, off), dtype=torch.uint8, device=leaves[0].device)
+    for per, (o, n, shape, _, _) in zip(leaves, fields):
+        # a trailing unit axis makes the byte view legal for any strides
+        buf[:, o:o + n].view((P,) + shape + (per.element_size(),)).copy_(
+            per.unsqueeze(-1).view(torch.uint8))
+    return buf, RowLayout(tuple(fields), off)
+
+
+def unpack_rows(buf: torch.Tensor, layout: RowLayout, like):
+    """The inverse of :func:`pack_rows`: ``like`` (a state of the packed
+    structure, any particle count) with its per-particle fields read from
+    the rows of ``buf`` ``[P', width]``, each a contiguous tensor of
+    ``P'`` particles."""
+    it = iter(layout.fields)
+
+    def take(_, axis):
+        o, n, shape, dtype, ax = next(it)
+        assert ax == axis
+        per = buf[:, o:o + n].view(dtype).view((buf.shape[0],) + shape)
+        return per.movedim(0, axis).contiguous()
+
+    return map_rows(take, like)
 
 
 def _eye_planes(n_particles, capacity, dim, device, dtype):
@@ -32,11 +118,11 @@ class GMState:
     mean [D, P, M], cov [T, P, M] packed, w / w_prev [P, M], alive [P, M] bool.
     """
 
-    mean: torch.Tensor
-    cov: torch.Tensor
-    w: torch.Tensor
-    w_prev: torch.Tensor
-    alive: torch.Tensor
+    mean: torch.Tensor = rows(1)
+    cov: torch.Tensor = rows(1)
+    w: torch.Tensor = rows(0)
+    w_prev: torch.Tensor = rows(0)
+    alive: torch.Tensor = rows(0)
 
     @classmethod
     def empty(cls, n_particles: int, capacity: int, dim: int,
@@ -51,6 +137,33 @@ class GMState:
                               device=device),
         )
 
+    @classmethod
+    def from_dense(cls, mean: torch.Tensor, cov: torch.Tensor,
+                   w: torch.Tensor, w_prev: torch.Tensor | None = None,
+                   alive: torch.Tensor | None = None) -> "GMState":
+        """From ``mean[P, M, D]`` / ``cov[P, M, D, D]`` (boundary use);
+        ``w_prev`` defaults to zeros, ``alive`` to every slot."""
+        return cls(mean=planar.pack_vec(mean), cov=planar.pack_sym(cov),
+                   w=w, w_prev=torch.zeros_like(w) if w_prev is None
+                   else w_prev,
+                   alive=torch.ones(w.shape, dtype=torch.bool,
+                                    device=w.device) if alive is None
+                   else alive)
+
+    @property
+    def mean_dense(self) -> torch.Tensor:
+        """``[P, M, D]`` (boundary use)."""
+        return planar.unpack_vec(self.mean)
+
+    @property
+    def cov_dense(self) -> torch.Tensor:
+        """``[P, M, D, D]`` (boundary use)."""
+        return planar.unpack_sym(self.cov, self.dim)
+
+    @property
+    def n_particles(self) -> int:
+        return self.w.shape[0]
+
     @property
     def capacity(self) -> int:
         return self.w.shape[1]
@@ -62,27 +175,17 @@ class GMState:
     def count(self) -> torch.Tensor:
         return self.alive.sum(dim=-1)
 
-    def gather_p(self, ancestors: torch.Tensor) -> "GMState":
-        """Gather along the particle axis (resampling map copy)."""
-        return GMState(
-            mean=self.mean.index_select(1, ancestors),
-            cov=self.cov.index_select(1, ancestors),
-            w=self.w.index_select(0, ancestors),
-            w_prev=self.w_prev.index_select(0, ancestors),
-            alive=self.alive.index_select(0, ancestors),
-        )
-
 
 @dataclasses.dataclass(frozen=True)
 class BirthCandidates:
     """Birth-candidate list (RBPHDFilter.hpp:171-178): mean [D, P, C],
     cov [T, P, C], n_support / n_checks [P, C] int32, alive [P, C] bool."""
 
-    mean: torch.Tensor
-    cov: torch.Tensor
-    n_support: torch.Tensor
-    n_checks: torch.Tensor
-    alive: torch.Tensor
+    mean: torch.Tensor = rows(1)
+    cov: torch.Tensor = rows(1)
+    n_support: torch.Tensor = rows(0)
+    n_checks: torch.Tensor = rows(0)
+    alive: torch.Tensor = rows(0)
 
     @classmethod
     def empty(cls, n_particles: int, capacity: int, dim: int,
@@ -102,24 +205,15 @@ class BirthCandidates:
     def capacity(self) -> int:
         return self.alive.shape[1]
 
-    def gather_p(self, ancestors: torch.Tensor) -> "BirthCandidates":
-        return BirthCandidates(
-            mean=self.mean.index_select(1, ancestors),
-            cov=self.cov.index_select(1, ancestors),
-            n_support=self.n_support.index_select(0, ancestors),
-            n_checks=self.n_checks.index_select(0, ancestors),
-            alive=self.alive.index_select(0, ancestors),
-        )
-
 
 @dataclasses.dataclass(frozen=True)
 class ParticleState:
     """pose [P, 3], log_w [P], parent [P] int64 (ancestor of the last
     resample).  Randomness comes from the caller, so no key is carried."""
 
-    pose: torch.Tensor
-    log_w: torch.Tensor
-    parent: torch.Tensor
+    pose: torch.Tensor = rows(0)
+    log_w: torch.Tensor = rows(0)
+    parent: torch.Tensor = rows(0)
 
     @classmethod
     def init(cls, n_particles: int, pose0: torch.Tensor,
@@ -139,3 +233,7 @@ class ParticleState:
             log_w=log_w,
             parent=torch.arange(n_particles, device=pose0.device),
         )
+
+    @property
+    def n_particles(self) -> int:
+        return self.pose.shape[0]

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from rfs_slam_tpu_torch.core import gaussian, planar
-from rfs_slam_tpu_torch.core.state import BirthCandidates, GMState, ParticleState
+from rfs_slam_tpu_torch.core.state import (BirthCandidates, GMState,
+                                           ParticleState, rows)
 from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops import resample as resample_ops
 from rfs_slam_tpu_torch.ops.assignment import hungarian, murty_gated
@@ -94,7 +95,7 @@ class FastSLAMState:
     particles: ParticleState
     gm: GMState                 # w = log-odds existence
     cand: BirthCandidates
-    n_in_fov: torch.Tensor      # [P] int32
+    n_in_fov: torch.Tensor = rows(0)  # [P] int32
     n_updates: torch.Tensor     # () updates since the last resample
     n_meas: torch.Tensor        # () measurements since the last resample
 
@@ -180,12 +181,20 @@ class FastSLAMFilter:
     def update(self, state: FastSLAMState, z: torch.Tensor,
                z_mask: torch.Tensor, u0: torch.Tensor | None = None,
                gen: torch.Generator | None = None,
-               has_z: bool | None = None, meas=None) -> FastSLAMState:
+               has_z: bool | None = None, meas=None,
+               mesh=None) -> FastSLAMState:
         """``z`` [Zc, DZ] padded measurements, ``z_mask`` [Zc].  ``u0``:
         the resampling offset in [0, 1), drawn from ``gen`` when None.
         ``has_z``: whether ``z_mask`` has a measurement, when the caller
         knows it on the host.  An empty set only advances the update
-        counter."""
+        counter.  ``mesh``: the state is this rank's block of the particle
+        axis (``parallel/mesh.py``); FastSLAM 1.0 only."""
+        if mesh is not None and self.cfg.max_hypotheses > 1:
+            # the global child keep, the Murty lane budget and the
+            # hypothesis-major child order cross the particle blocks
+            raise NotImplementedError(
+                "MH-FastSLAM under a particle mesh is not ported yet "
+                "(ROADMAP.md, Queue 1: MH-FastSLAM under a mesh)")
         if has_z is None:
             has_z = bool(z_mask.any())
         if not has_z:
@@ -195,7 +204,8 @@ class FastSLAMFilter:
             u0 = torch.rand((), generator=gen, dtype=pose.dtype,
                             device=pose.device)
         return self._update_body(state, z, z_mask, u0,
-                                 meas if meas is not None else self.meas)
+                                 meas if meas is not None else self.meas,
+                                 mesh)
 
     def _da_table(self, pose, gm: GMState, z, z_mask, meas):
         """In-range landmarks ranked by descending existence weight into
@@ -497,7 +507,7 @@ class FastSLAMFilter:
             n_meas=torch.where(do_rs, zero, state.n_meas + nZ))
 
     def _update_body(self, state: FastSLAMState, z, z_mask, u0,
-                     meas) -> FastSLAMState:
+                     meas, mesh=None) -> FastSLAMState:
         cfg = self.cfg
         pose, gm = state.particles.pose, state.gm
         P = pose.shape[0]
@@ -556,20 +566,23 @@ class FastSLAMFilter:
                  & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
         if H == 1:
             anc, new_log_w, did = resample_ops.maybe_resample(
-                u0, log_w, cfg.ess_threshold, allow)
+                u0, log_w, cfg.ess_threshold, allow, mesh)
         else:
             anc = resample_ops.systematic_ancestors(u0, log_w, P)
             new_log_w = torch.full((P,), -math.log(P), dtype=log_w.dtype,
                                    device=log_w.device)
             did = torch.ones((), dtype=torch.bool, device=log_w.device)
         g = resample_ops.gather_particles(
-            {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov}, anc)
+            {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov}, anc,
+            mesh)
         zero = torch.zeros_like(state.n_updates)
         # the recorded ancestry indexes the previous step's P particles
-        # (copy h * P + p descends from particle p)
+        # (copy h * P + p descends from particle p); under a mesh, the
+        # global ones
         return FastSLAMState(
-            particles=ParticleState(pose=g["pose"], log_w=new_log_w,
-                                    parent=anc % P),
+            particles=ParticleState(
+                pose=g["pose"], log_w=new_log_w,
+                parent=anc % P if mesh is None else mesh.block(anc)),
             gm=g["gm"], cand=g["cand"], n_in_fov=g["fov"],
             n_updates=torch.where(did, zero, state.n_updates + 1),
             n_meas=torch.where(did, zero, state.n_meas + nZ))

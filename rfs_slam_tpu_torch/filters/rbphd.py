@@ -30,7 +30,8 @@ import math
 import torch
 
 from rfs_slam_tpu_torch.core import gaussian, planar
-from rfs_slam_tpu_torch.core.state import BirthCandidates, GMState, ParticleState
+from rfs_slam_tpu_torch.core.state import (BirthCandidates, GMState,
+                                           ParticleState, rows)
 from rfs_slam_tpu_torch.models.measurement import RangeBearing
 from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops import resample as resample_ops
@@ -80,8 +81,8 @@ class RBPHDState:
     gm: GMState
     birth: BirthCandidates
     last_z: torch.Tensor       # [Zc, DZ] measurements of the previous update
-    last_unused: torch.Tensor  # [P, Zc] unused-measurement mask per particle
-    n_in_fov: torch.Tensor     # [P] landmarks in FOV at the last update
+    last_unused: torch.Tensor = rows(0)  # [P, Zc] unused-measurement mask
+    n_in_fov: torch.Tensor = rows(0)     # [P] landmarks in FOV, last update
     n_updates: torch.Tensor    # () updates since the last resample
     n_meas: torch.Tensor       # () measurements since the last resample
 
@@ -263,14 +264,17 @@ class RBPHDFilter:
     def update(self, state: RBPHDState, z: torch.Tensor,
                z_mask: torch.Tensor, u0: torch.Tensor | None = None,
                gen: torch.Generator | None = None,
-               has_z: bool | None = None, meas=None) -> RBPHDState:
+               has_z: bool | None = None, meas=None,
+               mesh=None) -> RBPHDState:
         """Reference: RBPHDFilter::update (RBPHDFilter.hpp:444-541).
 
         ``z`` [Zc, DZ] padded measurements, ``z_mask`` [Zc] validity.
         ``u0``: the resampling offset in [0, 1), drawn from ``gen`` when
         None.  ``has_z``: whether ``z_mask`` has a measurement, when the
         caller knows it on the host (saves a device sync).  ``meas``
-        overrides the wired measurement model for this update.
+        overrides the wired measurement model for this update.  ``mesh``:
+        the state is this rank's block of the particle axis
+        (``parallel/mesh.py``); only the resampling phase sees it.
         """
         if has_z is None:
             has_z = bool(z_mask.any())
@@ -279,9 +283,11 @@ class RBPHDFilter:
             # (RBPHDFilter.hpp:448-452)
             return dataclasses.replace(state, n_updates=state.n_updates + 1)
         return self._update_body(state, z, z_mask, u0, gen,
-                                 meas if meas is not None else self.meas)
+                                 meas if meas is not None else self.meas,
+                                 mesh)
 
-    def _update_body(self, state, z, z_mask, u0, gen, meas) -> RBPHDState:
+    def _update_body(self, state, z, z_mask, u0, gen, meas,
+                     mesh=None) -> RBPHDState:
         cfg = self.cfg
         pose = state.particles.pose
         nZ = z_mask.sum(dtype=torch.int32)
@@ -298,7 +304,7 @@ class RBPHDFilter:
             u0 = torch.rand((), generator=gen, dtype=pose.dtype,
                             device=pose.device)
         return self._resample_phase(state, gm_full, log_w, unused, n_in_fov,
-                                    z, nZ, u0)
+                                    z, nZ, u0, mesh)
 
     def _map_update(self, state: RBPHDState, z, z_mask, meas=None):
         """Map-update phase (RBPHDFilter.hpp:543-725): the head (the
@@ -430,24 +436,29 @@ class RBPHDFilter:
                 corr.z_exp, corr.cov_upd)
 
     def _resample_phase(self, state: RBPHDState, gm_full, log_w, unused,
-                        n_in_fov, z, nZ, u0) -> RBPHDState:
-        """Resampling phase (RBPHDFilter.hpp:526-539) and state assembly."""
+                        n_in_fov, z, nZ, u0, mesh=None) -> RBPHDState:
+        """Resampling phase (RBPHDFilter.hpp:526-539) and state assembly.
+        Under ``mesh`` the weights and the ancestor gather are global
+        (``ops/resample.py``) and ``parent`` holds global indices."""
         cfg = self.cfg
         allow = ((state.n_updates + 1 >= cfg.min_updates_before_resample)
                  & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
         anc, new_log_w, did = resample_ops.maybe_resample(
-            u0, log_w, cfg.ess_threshold, allow)
-        particles = ParticleState(
-            pose=state.particles.pose.index_select(0, anc),
-            log_w=new_log_w, parent=anc)
+            u0, log_w, cfg.ess_threshold, allow, mesh)
+        g = resample_ops.gather_particles(
+            {"pose": state.particles.pose, "gm": gm_full,
+             "birth": state.birth, "unused": unused, "fov": n_in_fov},
+            anc, mesh)
         zero = torch.zeros_like(state.n_updates)
         return RBPHDState(
-            particles=particles,
-            gm=gm_full.gather_p(anc),
-            birth=state.birth.gather_p(anc),
+            particles=ParticleState(
+                pose=g["pose"], log_w=new_log_w,
+                parent=anc if mesh is None else mesh.block(anc)),
+            gm=g["gm"],
+            birth=g["birth"],
             last_z=z,
-            last_unused=unused.index_select(0, anc),
-            n_in_fov=n_in_fov.index_select(0, anc),
+            last_unused=g["unused"],
+            n_in_fov=g["fov"],
             n_updates=torch.where(did, zero, state.n_updates + 1),
             n_meas=torch.where(did, zero, state.n_meas + nZ),
         )

@@ -145,12 +145,19 @@ class StaticLandmark:
     Q: torch.Tensor
     per_dt2: bool = False
 
+    def _q(self, dt) -> torch.Tensor:
+        """Q for a step of ``dt``; dt^2 is formed in float32, as the JAX
+        package forms it."""
+        if not self.per_dt2:
+            return self.Q
+        d = np.float32(dt)
+        return self.Q * float(d * d)
+
+    def static_step(self, mean: torch.Tensor, cov: torch.Tensor, dt):
+        """Dense step: ``cov [..., D, D]`` grows by Q."""
+        return mean, cov + self._q(dt)
+
     def static_step_p(self, mean: torch.Tensor, cov: torch.Tensor, dt):
-        """Plane-layout step: ``cov[T, ...]`` packed.  dt^2 is formed in
-        float32, as the JAX package forms it."""
-        q = self.Q
-        if self.per_dt2:
-            d = np.float32(dt)
-            q = q * float(d * d)
-        qp = planar.pack_sym(q)
+        """Plane-layout step: ``cov[T, ...]`` packed."""
+        qp = planar.pack_sym(self._q(dt))
         return mean, cov + qp.reshape(qp.shape + (1,) * (cov.ndim - 1))

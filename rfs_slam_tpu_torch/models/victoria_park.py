@@ -1,5 +1,8 @@
 """The Victoria Park lidar tree-detection measurement model (port of the JAX
-package's ``models/victoria_park.py``, plane-layout API only).
+package's ``models/victoria_park.py``): the plane-layout API of the filters
+and, for boundary use, the dense API (``measure``, ``inverse``, ``pd``,
+``_pd_single``: ``(..., 3)`` means, ``(..., 3, 3)`` covariances), computed
+through the plane forms.
 
 Reference: MeasurementModel_VictoriaPark.cpp.  Measurements are
 ``[range, bearing, diameter]``, landmarks ``[x, y, diameter]``.  The lidar
@@ -23,7 +26,8 @@ import math
 import torch
 
 from rfs_slam_tpu_torch.core import gaussian, planar
-from rfs_slam_tpu_torch.models.measurement import PlanarPrediction
+from rfs_slam_tpu_torch.models.measurement import (MeasurePrediction,
+                                                   PlanarPrediction)
 
 N_PROBE_PAIRS = 3
 BEAM_WINDOW = 32  # max beams in a tree's angular window (>= 2*gamma*720/2pi)
@@ -92,6 +96,33 @@ class VictoriaPark:
                            cov2[2] + zero, zero,
                            self.R[2, 2].expand(mx.shape)])
         return mean, cov
+
+    def measure(self, pose, lm_mean, lm_cov=None) -> MeasurePrediction:
+        """Dense form of :meth:`measure_p`: ``lm_mean [..., 3]``,
+        ``lm_cov [..., 3, 3]``; ``H_pose`` is zero (:148)."""
+        p = self.measure_p(pose, planar.pack_vec(lm_mean),
+                           None if lm_cov is None else planar.pack_sym(lm_cov))
+        z = torch.stack(p.z, dim=-1)
+        return MeasurePrediction(z, planar.unpack_sym(p.S, 3),
+                                 gaussian.matrix(p.H),
+                                 torch.zeros(z.shape + (3,), dtype=z.dtype,
+                                             device=z.device), p.valid)
+
+    def inverse(self, pose, z):
+        """Dense form of :meth:`inverse_p`: ``z [..., 3]`` -> ``(mean [...,
+        3], cov [..., 3, 3])``."""
+        mean, cov = self.inverse_p(pose, [z[..., d] for d in range(3)])
+        return planar.unpack_vec(mean), planar.unpack_sym(cov, 3)
+
+    def _pd_single(self, pose, xy, diameter):
+        """Dense form of :meth:`_pd_single_p`: a disc at ``xy [..., 2]``."""
+        return self._pd_single_p(pose, xy[..., 0], xy[..., 1], diameter)
+
+    def pd(self, pose, lm_mean, lm_cov=None):
+        """Dense form of :meth:`pd_p`: ``lm_mean [..., 3]``, ``lm_cov [...,
+        3, 3]`` -> ``(pd, close-to-limit)``."""
+        return self.pd_p(pose, planar.pack_vec(lm_mean),
+                         None if lm_cov is None else planar.pack_sym(lm_cov))
 
     def _pd_single_p(self, pose, lx, ly, diameter):
         """probabilityOfDetection2 (:202-265) -> (pd, close-to-limit)."""

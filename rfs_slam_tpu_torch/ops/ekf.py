@@ -41,6 +41,20 @@ class InnovationGates:
         return cls(thresholds=(float(range_t), float(bearing_t),
                                float(diam_t)), wrap_dims=(1,))
 
+    @classmethod
+    def none(cls, dz: int):
+        """No gate and no angle on ``dz`` components."""
+        return cls(thresholds=(-1.0,) * dz, wrap_dims=())
+
+    def innovation(self, z_exp: torch.Tensor, z_act: torch.Tensor):
+        """Stacked-layout innovation ``[..., DZ]``: returns (innovation,
+        pass mask ``[...]``)."""
+        innov, ok = self.innovation_p([z_exp[..., d] for d in
+                                       range(z_exp.shape[-1])],
+                                      [z_act[..., d] for d in
+                                       range(z_act.shape[-1])])
+        return torch.stack(innov, dim=-1), ok
+
     def innovation_p(self, z_exp, z_act):
         """Plane-layout innovation: returns (list of DZ planes, ok plane)."""
         innov = []

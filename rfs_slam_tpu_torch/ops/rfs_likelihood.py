@@ -26,19 +26,21 @@ _EPS = 1e-30
 
 @functools.lru_cache(maxsize=None)
 def _subset_tables(zd: int, device: torch.device):
-    """Index tables of the DP over subsets S of ``zd`` columns, built once
-    per (zd, device) so a step copies nothing from the host:
+    """Index tables of the DP over subsets S of ``zd`` columns, built on
+    ``device`` once per (zd, device), so no step copies from the host, the
+    first included:
 
     * ``partners`` [Zd * 2^Zd]: S \\ {c} where c is in S, else 2^Zd (the
       state's trailing zero column);
     * ``unmatched`` [Zd, 2^Zd] bool: c is not in S.
     """
     n = 1 << zd
-    s = torch.arange(n)
-    bits = torch.tensor([1 << (zd - 1 - c) for c in range(zd)])
+    s = torch.arange(n, device=device)
+    bits = torch.ones(zd, dtype=torch.long, device=device) << torch.arange(
+        zd - 1, -1, -1, device=device)
     unmatched = (s[None, :] & bits[:, None]) == 0
     partners = torch.where(unmatched, n, s[None, :] ^ bits[:, None])
-    return partners.reshape(-1).to(device), unmatched.to(device)
+    return partners.reshape(-1), unmatched
 
 
 def rfs_log_likelihood(L: torch.Tensor, pd: torch.Tensor,

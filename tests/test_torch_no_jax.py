@@ -1,8 +1,9 @@
 """rfs_slam_tpu_torch imports (its package walk reaching the checkpoint,
-timing and Victoria Park FastSLAM modules, the library modules and the
-examples), and runs a block-diagonal JCBB search, a nearest-point query, a
-few 2-D simulation steps of RB-PHD and MH-FastSLAM and three synthetic
-Victoria Park frames (RB-PHD with snapshots, MH-FastSLAM), in a process
+timing and Victoria Park FastSLAM modules, the library modules, the
+examples and the particle mesh), and runs a block-diagonal JCBB search, a
+nearest-point query, a few 2-D simulation steps of RB-PHD and MH-FastSLAM,
+three synthetic Victoria Park frames (RB-PHD with snapshots, MH-FastSLAM)
+and RB-PHD steps sharded over a one-rank gloo group, in a process
 where JAX and the JAX package cannot be imported (the GPU machine has no
 JAX); the Hungarian kernel's launch plan."""
 
@@ -39,7 +40,8 @@ SCRIPT = textwrap.dedent("""
                  "utils.memprofile", "examples.linear_assignment_murty",
                  "examples.linear_assignment_partition",
                  "examples.linear_assignment_lexicographic",
-                 "examples.ospa_error", "examples.spatial_index"):
+                 "examples.ospa_error", "examples.spatial_index",
+                 "parallel.mesh", "parallel.dryrun"):
         assert "rfs_slam_tpu_torch." + name in names, name
 
     import torch
@@ -99,6 +101,20 @@ SCRIPT = textwrap.dedent("""
         _, outs = fs_vp.run(ffilt, icov, frames,
                             torch.Generator().manual_seed(0))
         assert outs["pose"].shape == (3, 6, 3)
+    # a sharded step: a gloo group of one rank, the collectives through it
+    from rfs_slam_tpu_torch.parallel import mesh as mesh_lib
+    with tempfile.TemporaryDirectory() as d:
+        mesh_lib.init_process_group("file://" + d + "/rdv", 1, 0,
+                                    torch.device("cpu"))
+        m = mesh_lib.make_mesh(4, torch.device("cpu"))
+        assert torch.distributed.get_backend(m.group) == "gloo"
+        st = loop.steps(filt, loop.device_inputs(loop.sim_inputs(data),
+                                                 m.device),
+                        torch.Generator().manual_seed(0), cfg.dt,
+                        lambda k, s: None, m)
+        assert m.stats["collectives"] > 0
+        assert mesh_lib.gather_state(st, m).particles.pose.shape == (4, 3)
+        torch.distributed.destroy_process_group()
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "rfs_slam_tpu")]
     assert not bad, bad
