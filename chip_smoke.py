@@ -12,6 +12,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    replay, with that replay's measurements, and on edge inputs cut from it
    (a crowded map, T=1, negative weights, tied values, sparse columns and
    an empty particle, M=100, Zc=1, M=300 and M=1024);
+3b. ``map_update2d``'s block form (the particles x map mesh's: a head and
+   a tail launch per block of slots, the column sums combined in block
+   order, the picks merged) on the same mid-run state in two blocks of 64
+   slots, against its twin and against the one launch (unused flags and
+   positive picks equal), and the device time of one block's two launches
+   beside its twins';
 4. ``merge2d``: kernel against its plain twin on random mixtures with
    20-120 alive slots, on the same mid-run state, and on edge mixtures
    (gated chains across 32-slot words, every slot alive, N=100, a
@@ -102,24 +108,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``native/rfsio.cpp``, built here) against the Python writers on phase
    7's logged run (3,000 steps x 200 particles and the best map),
    byte-equal, each writer's host seconds;
-15. the three one-hypothesis paths sharded over the most ranks of 4, 2
-   and 1 that the cards hold (P=200 and P=100 split evenly over each; 3
-   would not), one process a card over NCCL (``parallel/mesh.py``,
-   driven by ``parallel/dryrun.py``), each against its
-   unsharded run in this process: the ``native/bl_dump`` replay (P=200,
-   M=128, Zc=40) and FastSLAM 1.0 on ``sim2d`` (P=200, M=128, NMZ=32), 160
-   steps each (the 100-step ground-truth lock, then 60 free steps), and
-   Victoria Park RB-PHD (P=100, M=512, Zc=24, D=3), 60 frames, every loop
-   under torch's sync debug mode set to raise; on a machine with one card,
+15. four paths sharded over the most ranks of 4, 2 and 1 that the cards
+   hold (P=200, P=100 and P_cap=600 split evenly over each; 3 would not),
+   one process a card over NCCL (``parallel/mesh.py``, driven by
+   ``parallel/dryrun.py``), each against its unsharded run in this
+   process: the ``native/bl_dump`` replay (P=200, M=128, Zc=40),
+   FastSLAM 1.0 on ``sim2d`` (P=200, M=128, NMZ=32) and MH-FastSLAM (H=3,
+   200 live of P_cap=600, lane budget 200), 160 steps each (the 100-step
+   ground-truth lock, then 60 free steps), and Victoria Park RB-PHD
+   (P=100, M=512, Zc=24, D=3), 60 frames, every loop under torch's sync
+   debug mode set to raise; then the replay on the particles x map mesh:
+   on four cards a 2 x 2 NCCL mesh, on one card a 1 x 1 NCCL mesh (160
+   steps, bit-equal to the unsharded run) and a 1 x 2 mesh of two gloo
+   ranks sharing the card; each 2-rank map mesh teacher-forced (140 free
+   steps, then 20 steps each from the unsharded state with the same
+   draws, every integer and bool field equal and the floats within
+   ``test_sharding.py``'s one-step tolerances, ``dryrun.
+   compare_states``); on a machine with one card,
    again over two ranks sharing it through gloo (NCCL refuses a card
    twice; gloo's collectives wait on the host, so without the sync
    check); ``parent``, the resampling flags and every integer and bool
    field of the final state equal, pose, ``log_w`` and ``w`` within
    ``test_sharding.py``'s multistep tolerances, every other float field
-   within 1e-4 (relative above 1); one JSON line a path and run (ranks, backend, devices,
-   launches and collectives a step, the bytes each rank receives a step,
-   steps/s sharded beside unsharded, resamples, ancestors taken from
-   another rank);
+   within 1e-4 (relative above 1); one JSON line a path and run (ranks,
+   mesh, backend, devices, launches and collectives a step, the bytes each
+   rank receives a step, steps/s sharded beside unsharded, resamples,
+   ancestors taken from another rank); ``map_update2d`` launches twice an
+   update under a map mesh (head and tail), every other kernel as often
+   as unsharded;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -208,7 +224,13 @@ VP_MH_DIVERGENCE_BOUND_M = 2.0
 VP_FS_CHUNK = 500          # frames a chunk of the chunked run
 VP_RESUME_FRAMES = 300     # phase 13: a run cut after half of these
 # phase 15: the 2-D paths' 100-step ground-truth lock, then 60 free steps
-SHARDED_PATHS = (("replay", 160), ("vp", 60), ("fastslam", 160))
+SHARDED_PATHS = (("replay", 160), ("vp", 60), ("fastslam", 160),
+                 ("mh", 160))
+# phase 15's map mesh: the replay's 160 steps; teacher-forced, 140 free
+# steps then 20 held one by one
+MAP_PATH = ("replay", 160)
+MAP_TEACHER = (140, 20)
+MAP_BLOCKS = 2     # slot blocks of the block form's direct check (3b)
 SHARDED_TIMEOUT_S = 300
 # rank counts that split every sharded path's particles (200, 100) evenly
 SHARDED_RANKS = (4, 2, 1)
@@ -472,6 +494,65 @@ def check_map_update(torch, mu, filt, state, z, z_mask):
         torch, "map_update2d", lambda: mu.fused_map_update2d(*args),
         lambda: mu.map_update2d_plain(*args)),
         *map_update_bound(args, mu.fused_map_update2d(*args)))
+
+
+def check_map_update_block(torch, mu, filt, state, z, z_mask):
+    """Phase 3b: ``map_update2d``'s block form (head and tail launches per
+    block, the column sums combined in block order, the picks merged) on
+    the mid-run state split into MAP_BLOCKS blocks of slots, against the
+    same form's twin (the kernel-against-twin tolerances, the unused flags
+    and the positive picks equal) and against the one-launch kernel (the
+    unused flags and the positive picks equal); then the device time of
+    one block's two launches (one rank's share, P=200, M=64) beside its
+    twin's.  Returns ``(max abs error, ms, plain_ms)``."""
+    gm, cfg = state.gm, filt.cfg
+    args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
+            gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
+            filt._map_params, cfg.new_per_z)
+    k = mu.map_update2d_blocks(*args, n_blocks=MAP_BLOCKS)
+    p = mu.map_update2d_blocks(*args, n_blocks=MAP_BLOCKS, plain=True)
+    one = mu.fused_map_update2d(*args)
+    torch.cuda.synchronize()
+    errs = [close("block pd", k.pd, p.pd, 1e-6, 1e-7),
+            close("block col_sum", k.col_sum, p.col_sum, 5e-5, 1e-7),
+            close("block w", k.w, p.w, 5e-5, 1e-7),
+            close("block w_prev", k.w_prev, p.w_prev, 0, 0),
+            close("block K", k.K, p.K, 1e-4, 1e-6),
+            close("block cov_upd", k.cov_upd, p.cov_upd, 1e-4, 1e-6),
+            close("block z_exp", k.z_exp, p.z_exp, 1e-5, 1e-6),
+            close("block cand_w", k.cand_w, p.cand_w, 1e-5, 1e-8)]
+    for name, want in (("twin", p), ("one launch", one)):
+        np.testing.assert_array_equal(k.unused.cpu().numpy(),
+                                      want.unused.cpu().numpy(),
+                                      err_msg=f"block unused ({name})")
+        nz = (want.cand_w > 0).cpu().numpy()
+        np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
+                                      want.cand_m.cpu().numpy()[nz],
+                                      err_msg=f"block cand_m ({name})")
+    M = gm.w.shape[1]
+    Mb = M // MAP_BLOCKS
+    blk = tuple(x[:, :Mb].contiguous() for x in args[1:9])
+    head = mu.map_update2d_head(args[0], *blk, z, z_mask, args[11])
+    col_sum = mu.combine_col_sums(head.col_part[None], args[11][4])
+
+    def launches():
+        mu.map_update2d_head(args[0], *blk, z, z_mask, args[11])
+        mu.map_update2d_tail(args[0], *blk[:6], blk[7], z, z_mask, args[11],
+                             col_sum, cfg.new_per_z, 0)
+
+    def twins():
+        mu.map_update2d_head_plain(args[0], *blk, z, z_mask, args[11])
+        mu.map_update2d_tail_plain(args[0], *blk[:6], blk[7], z, z_mask,
+                                   args[11], col_sum, cfg.new_per_z, 0)
+
+    ms, plain_ms = kernel_vs_twin_ms(torch, "map_update2d block", launches,
+                                     twins)
+    rec = {"map_update2d_block": f"{MAP_BLOCKS} blocks of {Mb} slots",
+           "particles": int(gm.w.shape[0]), "max_abs_err": max(errs),
+           "block_ms": ms, "block_plain_ms": plain_ms,
+           "picks": int((k.cand_w > 0).sum())}
+    print(json.dumps(rec), flush=True)
+    return max(errs), ms, plain_ms
 
 
 def random_mixtures(torch, GMState, rng, P, N, dev):
@@ -1415,14 +1496,32 @@ def library_phase(torch, hk, vp_fs, fs_logs, dev):
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def check_launches(rec, map_mesh: bool):
+    """Each kernel of a phase 15 record launched in its sharded run, as
+    often a step as unsharded (``map_update2d`` twice as often under a map
+    mesh: the block form's head and tail), or for a teacher-forced record
+    once (twice) for each ``merge2d`` launch."""
+    got = rec["launches_per_step"]
+    want = rec.get("plain_launches_per_step") or {
+        k: got["merge2d"] for k in got}
+    for name, n in got.items():
+        factor = 2 if map_mesh and name == "map_update2d" else 1
+        if not n or n != factor * want[name]:
+            raise AssertionError(f"phase 15: {name} launched {n} times a "
+                                 f"step sharded, {want} unsharded")
+
+
 def sharded_phase(torch):
     """Phase 15: :data:`SHARDED_PATHS` sharded over the most ranks of
     :data:`SHARDED_RANKS` that the cards hold (NCCL, one a card) against
     their unsharded runs (``parallel/dryrun.compare_paths``), one JSON
     line a path; on one card
     also over two ranks sharing it through gloo (NCCL refuses a card
-    twice).  Each path's kernels must launch in its sharded run, as often
-    a step as unsharded."""
+    twice).  Then the replay on the particles x map mesh: on four cards a
+    2 x 2 NCCL mesh, teacher-forced; on one card a 1 x 1 NCCL mesh (a free
+    run, bit-equal to the unsharded one) and a 1 x 2 gloo mesh of two
+    ranks sharing the card, teacher-forced.  Each path's kernels must
+    launch in its sharded run (:func:`check_launches`)."""
     from rfs_slam_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
@@ -1434,8 +1533,18 @@ def sharded_phase(torch):
         # gloo stages a CUDA tensor through the host and waits on it, so
         # this loop runs without the sync check
         runs.append(dict(ranks=2, backend="gloo", sync_check=False))
-    for run in runs:
-        for rec in dryrun.compare_paths(SHARDED_PATHS, device_type="cuda",
+    jobs = [(run, SHARDED_PATHS) for run in runs]
+    # the map mesh (the replay only)
+    teacher = [(MAP_PATH[0], MAP_TEACHER[1])]
+    if cards >= 4:
+        jobs.append((dict(ranks=4, map_shards=2, teacher=MAP_TEACHER[0]),
+                     teacher))
+    else:
+        jobs += [(dict(ranks=1, map_shards=1), [MAP_PATH]),
+                 (dict(ranks=2, map_shards=2, backend="gloo",
+                       sync_check=False, teacher=MAP_TEACHER[0]), teacher)]
+    for run, run_paths in jobs:
+        for rec in dryrun.compare_paths(run_paths, device_type="cuda",
                                       timeout_s=SHARDED_TIMEOUT_S, **run):
             rec["sync_check"] = run.get("sync_check", True)
             print(json.dumps({"phase15": rec.pop("path"), **rec}),
@@ -1443,12 +1552,12 @@ def sharded_phase(torch):
             if not rec["ok"]:
                 raise AssertionError(f"phase 15: the sharded run differs "
                                      f"from the unsharded one: {rec}")
-            for name, n in rec["launches_per_step"].items():
-                if not n or n != rec["plain_launches_per_step"][name]:
-                    raise AssertionError(
-                        f"phase 15: {name} launched {n} times a step "
-                        f"sharded, {rec['plain_launches_per_step']} "
-                        f"unsharded")
+            if run.get("map_shards") == 1 and not all(
+                    rec[f"max_abs_{k}"] == 0.0 for k in ("pose", "log_w",
+                                                         "w")):
+                raise AssertionError(f"phase 15: the 1 x 1 map mesh is not "
+                                     f"the unsharded run bit for bit: {rec}")
+            check_launches(rec, bool(run.get("map_shards")))
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -1537,6 +1646,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     state, z, z_mask = midrun(torch, app, loop, filt, gen, dt)
     mu_row = check_map_update(torch, mu, filt, state, z, z_mask)
+    mu_block = check_map_update_block(torch, mu, filt, state, z, z_mask)
     mg_row = check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask,
                          dev)
 
@@ -1732,6 +1842,9 @@ def main(argv=None) -> int:
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "floor_ms": floor_ms, "library_ms": None})
+    # the block form: one rank's two launches on its 64 slots (phase 3b)
+    kernels[0].update(block_max_abs_err=mu_block[0], block_ms=mu_block[1],
+                      block_plain_ms=mu_block[2])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

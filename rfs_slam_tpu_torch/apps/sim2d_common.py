@@ -108,9 +108,11 @@ def steps(filt, dinputs, gen: torch.Generator, dt: float, on_step,
     the final state.
 
     Under ``mesh`` (``parallel/mesh.py``) the state is this rank's block of
-    the particle axis: every rank draws the whole ``[P, 3]`` motion noise
-    from ``gen`` (seeded alike on every rank) and keeps its block, so the
-    draws are the unsharded run's, and the returned state is the block.
+    the particle axis (and, under a particles x map mesh, of each map's
+    slots): every rank draws the whole ``[P, 3]`` motion noise from
+    ``gen`` (seeded alike on every rank) and keeps its particles' block, so
+    the draws are the unsharded run's, and the returned state is the
+    block.
     """
     odo, z, z_mask, gt, lock, has_z = dinputs
     state = filt.init_state(torch.zeros(3, device=odo.device))
@@ -118,7 +120,8 @@ def steps(filt, dinputs, gen: torch.Generator, dt: float, on_step,
         state = mesh_lib.shard_state(state, mesh)
     for k in range(len(lock)):
         noise = None if mesh is None else mesh.randn_block(gen, 3)
-        state = filt.predict(state, odo[k], dt, gen=gen, noise=noise)
+        state = filt.predict(state, odo[k], dt, gen=gen, noise=noise,
+                             mesh=mesh)
         if lock[k]:
             pose = gt[k].expand_as(state.particles.pose).contiguous()
             state = dataclasses.replace(

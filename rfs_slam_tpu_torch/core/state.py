@@ -7,8 +7,10 @@ convention: phases build new ones with :func:`dataclasses.replace`.
 
 Each per-particle field declares its particle axis (:func:`rows`: 0 for
 ``[P, ...]``, 1 for the plane-major ``[D|T, P, M]``); a field without one
-is the same for every particle.  :func:`map_rows` applies a function to the
-per-particle fields of a state, and :func:`pack_rows` /
+is the same for every particle.  The map's fields (``GMState``'s) also
+declare their slot axis, the axis a particles x map mesh splits.
+:func:`map_rows` applies a function to the per-particle fields of a state
+(:func:`map_axes` with the slot axis too), and :func:`pack_rows` /
 :func:`unpack_rows` carry them as one ``[P, bytes]`` buffer, the unit the
 particle-axis collectives of :mod:`rfs_slam_tpu_torch.parallel.mesh` move.
 """
@@ -23,31 +25,43 @@ import torch
 from rfs_slam_tpu_torch.core import planar
 
 PARTICLE_AXIS_KEY = "particle_axis"
+MAP_AXIS_KEY = "map_axis"
 _ROW_ALIGN = 8  # bytes: every field's columns start on an int64 boundary
 
 
-def rows(axis: int = 0):
-    """A dataclass field whose axis ``axis`` is the particle axis."""
-    return dataclasses.field(metadata={PARTICLE_AXIS_KEY: axis})
+def rows(axis: int = 0, map_axis: int | None = None):
+    """A dataclass field whose axis ``axis`` is the particle axis and, for
+    a map field, whose axis ``map_axis`` is the slot axis."""
+    meta = {PARTICLE_AXIS_KEY: axis}
+    if map_axis is not None:
+        meta[MAP_AXIS_KEY] = map_axis
+    return dataclasses.field(metadata=meta)
 
 
-def map_rows(fn, obj):
+def map_axes(fn, obj):
     """``obj`` with every per-particle tensor ``x`` replaced by ``fn(x,
-    axis)``, the other fields kept.  ``obj`` is one of the state
-    dataclasses (nested ones are walked) or a dict of them and of tensors
-    whose leading axis is the particle axis.  Fields are visited in
-    declaration order, dict entries in insertion order."""
+    axis, map_axis)`` (``map_axis`` None for a field without a slot axis),
+    the other fields kept.  ``obj`` is one of the state dataclasses (nested
+    ones are walked) or a dict of them and of tensors whose leading axis is
+    the particle axis.  Fields are visited in declaration order, dict
+    entries in insertion order."""
     if isinstance(obj, dict):
-        return {k: map_rows(fn, v) if dataclasses.is_dataclass(v)
-                else fn(v, 0) for k, v in obj.items()}
+        return {k: map_axes(fn, v) if dataclasses.is_dataclass(v)
+                else fn(v, 0, None) for k, v in obj.items()}
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
-            changes[f.name] = map_rows(fn, v)
+            changes[f.name] = map_axes(fn, v)
         elif f.metadata.get(PARTICLE_AXIS_KEY) is not None:
-            changes[f.name] = fn(v, f.metadata[PARTICLE_AXIS_KEY])
+            changes[f.name] = fn(v, f.metadata[PARTICLE_AXIS_KEY],
+                                 f.metadata.get(MAP_AXIS_KEY))
     return dataclasses.replace(obj, **changes)
+
+
+def map_rows(fn, obj):
+    """:func:`map_axes` with ``fn(x, axis)``: the particle axis only."""
+    return map_axes(lambda x, axis, _: fn(x, axis), obj)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,13 +130,14 @@ class GMState:
     """Per-particle Gaussian-mixture map, padded to capacity M.
 
     mean [D, P, M], cov [T, P, M] packed, w / w_prev [P, M], alive [P, M] bool.
+    The slot axis M is the map axis of a particles x map mesh.
     """
 
-    mean: torch.Tensor = rows(1)
-    cov: torch.Tensor = rows(1)
-    w: torch.Tensor = rows(0)
-    w_prev: torch.Tensor = rows(0)
-    alive: torch.Tensor = rows(0)
+    mean: torch.Tensor = rows(1, map_axis=2)
+    cov: torch.Tensor = rows(1, map_axis=2)
+    w: torch.Tensor = rows(0, map_axis=1)
+    w_prev: torch.Tensor = rows(0, map_axis=1)
+    alive: torch.Tensor = rows(0, map_axis=1)
 
     @classmethod
     def empty(cls, n_particles: int, capacity: int, dim: int,

@@ -52,6 +52,17 @@
 // set as IEEE division gives it, without the division.  atan2f replaces the
 // TPU kernel's polynomial atan2 (Mosaic has none), and wrap_angle rounds
 // half to even (rintf) as jnp.round does.
+//
+// Block form (a map split over ranks, the particles x map mesh): the
+// column sums span every slot, so a block's launch cannot finish alone.
+// Two instantiations of the same kernel do the work of one launch on a
+// block of M slots: kHead runs phases 1-2 and writes the plane outputs
+// and the block's column sums without the clutter (phase 3's sum, in its
+// order); the caller combines the blocks' sums over the map ranks and
+// kTail runs phases 1-2 again (writing no planes), then phases 3-4 with
+// the given column sums (clutter included): normalisation, the block's
+// unused flags, its top T with the slot numbers offset by m_off, and the
+// missed-detection weights.  kWhole is the one-launch form, unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,6 +83,8 @@ constexpr int kMaxThreads = 512;
 constexpr int kAlive = 1, kClose = 2;
 // order key of +0.0 (a picked entry) and of a padding lane (below all)
 constexpr unsigned kZeroKey = 0x80000000u, kPadKey = 0u;
+// kernel forms: one launch, or a map block's head and tail launches
+constexpr int kWhole = 0, kHead = 1, kTail = 2;
 
 __device__ __forceinline__ float wrap_angle(float a) {
   return a - kTwoPi * rintf(a / kTwoPi);
@@ -141,15 +154,24 @@ __device__ __forceinline__ void warp_first_argmax(unsigned best, int bi,
 // T rounds of first-argmax over the column reread from shared memory.
 // Bit r of tabmask: slot lane + 32 r is in the table; the others' entries
 // are zero and were not written this chunk.
+// kTail: the column sum is given (cs_given, clutter included) and the
+// picked slot numbers are offset by m_off.
+template <int kMode>
 __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
                        int k, bool zm, float clutter, int lane, size_t p,
                        float* colsum_out, bool* unused_out, float* cand_w,
-                       int64_t* cand_m) {
-  float s = 0.f;
-  for (int j = lane, r = 0; j < M; j += 32, ++r)
-    if ((tabmask >> r) & 1u) s += col[j];
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-  const float c = clutter + s;
+                       int64_t* cand_m, float cs_given, int m_off) {
+  float c;
+  if constexpr (kMode == kTail) {
+    c = cs_given;
+  } else {
+    float s = 0.f;
+    for (int j = lane, r = 0; j < M; j += 32, ++r)
+      if ((tabmask >> r) & 1u) s += col[j];
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(kFull, s, off);
+    c = clutter + s;
+  }
   bool any = false;
   for (int j = lane, r = 0; j < M; j += 32, ++r) {
     const float v = (tabmask >> r) & 1u ? col[j] : 0.f;
@@ -159,7 +181,7 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
   }
   any = __any_sync(kFull, any);
   if (lane == 0) {
-    colsum_out[p * Zc + k] = c;
+    if constexpr (kMode == kWhole) colsum_out[p * Zc + k] = c;
     unused_out[p * Zc + k] = zm && !any;
   }
 
@@ -176,7 +198,7 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
     if (lane == 0) {
       const size_t o = p * T * Zc + static_cast<size_t>(t) * Zc + k;
       cand_w[o] = key_value(g);
-      cand_m[o] = min(static_cast<int>(idx), M - 1);
+      cand_m[o] = min(static_cast<int>(idx), M - 1) + m_off;
     }
     if (idx < static_cast<unsigned>(M) && lane == static_cast<int>(idx & 31))
       taken |= 1u << (idx >> 5);
@@ -189,22 +211,30 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
 // zero.  Same results as column() but on ceil(ntab / 32) entries a lane.
 // Returns false, having written nothing, when an entry is negative or NaN:
 // then the T rounds may pick zeros outside the table, and column() runs.
-template <int CR>
+template <int CR, int kMode>
 __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
                                int M, int T, int Zc, int k, bool zm,
                                float clutter, int lane, size_t p,
                                float* colsum_out, bool* unused_out,
-                               float* cand_w, int64_t* cand_m) {
-  // the sum in column()'s order, the first port's: lane partials over the
-  // lane's slots lane + 32 r, then the butterfly (a zero adds nothing)
-  float s = 0.f;
-  for (int j = lane, r = 0; j < M; j += 32, ++r)
-    if ((tabmask >> r) & 1u) s += col[j];
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+                               float* cand_w, int64_t* cand_m,
+                               float cs_given, int m_off) {
+  float cs;
+  if constexpr (kMode == kTail) {
+    cs = cs_given;
+  } else {
+    // the sum in column()'s order, the first port's: lane partials over
+    // the lane's slots lane + 32 r, then the butterfly (a zero adds
+    // nothing)
+    float s = 0.f;
+    for (int j = lane, r = 0; j < M; j += 32, ++r)
+      if ((tabmask >> r) & 1u) s += col[j];
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(kFull, s, off);
+    cs = clutter + s;
+  }
   float v[CR];
 #pragma unroll
   for (int c = 0; c < CR; ++c) v[c] = sm[c] >= 0 ? col[sm[c]] : 0.f;
-  const float cs = clutter + s;
   const float xz = zm ? div_nz(0.f, cs) : 0.f;  // the other slots' entry
   bool bad = !(xz >= 0.f), any = false;
   float x[CR];
@@ -222,7 +252,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
   for (int j = lane, r = 0; j < M; j += 32, ++r)
     if (!((tabmask >> r) & 1u)) col[j] = xz;
   if (lane == 0) {
-    colsum_out[p * Zc + k] = cs;
+    if constexpr (kMode == kWhole) colsum_out[p * Zc + k] = cs;
     unused_out[p * Zc + k] = zm && !any;
   }
 
@@ -258,12 +288,12 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
     for (int c = 0; c < CR; ++c) {
       if ((pos[c] >> lane) & 1u) {
         cand_w[o + static_cast<size_t>(rank[c]) * Zc] = key_value(key[c]);
-        cand_m[o + static_cast<size_t>(rank[c]) * Zc] = sm[c];
+        cand_m[o + static_cast<size_t>(rank[c]) * Zc] = sm[c] + m_off;
       }
     }
     for (int t = npos + lane; t < T; t += 32) {
       cand_w[o + static_cast<size_t>(t) * Zc] = 0.f;
-      cand_m[o + static_cast<size_t>(t) * Zc] = 0;
+      cand_m[o + static_cast<size_t>(t) * Zc] = m_off;
     }
     return true;
   }
@@ -279,7 +309,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
     warp_first_argmax(best, bi, g, idx);
     if (lane == 0) {
       cand_w[o + static_cast<size_t>(t) * Zc] = key_value(g);
-      cand_m[o + static_cast<size_t>(t) * Zc] = idx;
+      cand_m[o + static_cast<size_t>(t) * Zc] = idx + m_off;
     }
 #pragma unroll
     for (int c = 0; c < CR; ++c)
@@ -290,8 +320,10 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
 
 // at most 64 registers a thread, so two 512-thread CTAs fit on an SM and
 // all 200 particles of the bench shape run in one wave on 132 SMs
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
-    Params prm, int M, int Zc, int T, int ZB,
+    Params prm, int M, int Zc, int T, int ZB, int m_off,
+    const float* __restrict__ colsum_in,
     const float* __restrict__ pose, const float* __restrict__ mx,
     const float* __restrict__ my, const float* __restrict__ c00,
     const float* __restrict__ c01, const float* __restrict__ c11,
@@ -318,7 +350,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   unsigned* s_tabw = reinterpret_cast<unsigned*>(s_flag + M);  // [W]
   float* tab = reinterpret_cast<float*>(s_tabw + (M + 31) / 32);
 
-  // output planes, each [P, M], then col_sum [P, Zc] and cand_w [P, T*Zc]
+  // output planes, each [P, M], then col_sum [P, Zc] and cand_w [P, T*Zc];
+  // kHead writes the planes but w and the column sums without clutter,
+  // kTail w [P, M] then cand_w
   const int P = gridDim.x;
   const size_t PM = static_cast<size_t>(P) * M;
   float* w_out = out;
@@ -334,7 +368,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   float* zer_out = out + 10 * PM;
   float* zeb_out = out + 11 * PM;
   float* colsum_out = out + 12 * PM;
-  float* cand_w = colsum_out + static_cast<size_t>(P) * Zc;
+  float* cand_w = kMode == kTail ? out + PM
+                                 : colsum_out + static_cast<size_t>(P) * Zc;
 
   const size_t p = blockIdx.x;
   const int tid = threadIdx.x;
@@ -413,17 +448,19 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
       const bool close = (near_inner || near_outer) && alv;
       const float pd = close ? 1.0f : ((mvalid && alv) ? prm.pd_const : 0.0f);
 
-      pd_out[pm] = pd;
-      k00_out[pm] = k00;
-      k01_out[pm] = k01;
-      k10_out[pm] = k10;
-      k11_out[pm] = k11;
-      cu00_out[pm] = u00;
-      cu01_out[pm] = 0.5f * (u01 + u10);
-      cu11_out[pm] = u11;
-      zer_out[pm] = r;
-      zeb_out[pm] = b;
-      wp_out[pm] = alv ? wv : w_prev[pm];
+      if constexpr (kMode != kTail) {
+        pd_out[pm] = pd;
+        k00_out[pm] = k00;
+        k01_out[pm] = k01;
+        k10_out[pm] = k10;
+        k11_out[pm] = k11;
+        cu00_out[pm] = u00;
+        cu01_out[pm] = 0.5f * (u01 + u10);
+        cu11_out[pm] = u11;
+        zer_out[pm] = r;
+        zeb_out[pm] = b;
+        wp_out[pm] = alv ? wv : w_prev[pm];
+      }
 
       s_r[m] = r;
       s_b[m] = b;
@@ -494,30 +531,49 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     // (RBPHDFilter.hpp:686-720 and the hierarchical selection)
     for (int kk = warp; kk < nk; kk += n_warps) {
       const int k = k0 + kk;
-      const bool zm = s_zm[k] != 0;
       float* col = tab + kk * M;
-      const bool done =
-          ntab <= 32 ? column_compact<1>(col, sm, tabmask, M, T, Zc, k, zm,
-                                         prm.clutter, lane, p, colsum_out,
-                                         unused_out, cand_w, cand_m)
-          : ntab <= 64 ? column_compact<2>(col, sm, tabmask, M, T, Zc, k, zm,
+      if constexpr (kMode == kHead) {
+        // the block's column sum, in column()'s order, without clutter
+        float s = 0.f;
+        for (int j = lane, r = 0; j < M; j += 32, ++r)
+          if ((tabmask >> r) & 1u) s += col[j];
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(kFull, s, off);
+        if (lane == 0) colsum_out[p * Zc + k] = s;
+      } else {
+        const bool zm = s_zm[k] != 0;
+        const float cs_given = kMode == kTail ? colsum_in[p * Zc + k] : 0.f;
+        const bool done =
+            ntab <= 32
+                ? column_compact<1, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
                                            prm.clutter, lane, p, colsum_out,
-                                           unused_out, cand_w, cand_m)
-                       : false;
-      if (!done)
-        column(col, tabmask, M, T, Zc, k, zm, prm.clutter, lane, p,
-                  colsum_out, unused_out, cand_w, cand_m);
+                                           unused_out, cand_w, cand_m,
+                                           cs_given, m_off)
+            : ntab <= 64
+                ? column_compact<2, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
+                                           prm.clutter, lane, p, colsum_out,
+                                           unused_out, cand_w, cand_m,
+                                           cs_given, m_off)
+                : false;
+        if (!done)
+          column<kMode>(col, tabmask, M, T, Zc, k, zm, prm.clutter, lane, p,
+                        colsum_out, unused_out, cand_w, cand_m, cs_given,
+                        m_off);
+      }
     }
     __syncthreads();
 
     // ---- 4a. row sums in column order
-    for (int m = tid; m < M; m += nthr) {
-      float row = s_row[m];
-      for (int kk = 0; kk < nk; ++kk) row += tab[kk * M + m];
-      s_row[m] = row;
+    if constexpr (kMode != kHead) {
+      for (int m = tid; m < M; m += nthr) {
+        float row = s_row[m];
+        for (int kk = 0; kk < nk; ++kk) row += tab[kk * M + m];
+        s_row[m] = row;
+      }
     }
     if (k0 + ZB < Zc) __syncthreads();  // the next chunk overwrites tab
   }
+  if constexpr (kMode == kHead) return;
 
   // ---- 4b. missed-detection weights (hpp:686-706); each thread reads the
   // row sums it wrote
@@ -535,18 +591,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
 
 }  // namespace
 
-// threads, smem and zb come from the wrapper's launch_plan.  out: one float
-// buffer of 12 planes [P, M] (w, w_prev, pd, K00, K01, K10, K11, cov_upd
-// 00/01/11, z_exp r/b), then col_sum [P, Zc], then cand_w [P, T * Zc].
-extern "C" int map_update2d_launch(
-    int P, int M, int Zc, int T, int threads, int smem, int zb,
-    const float* params, const void* pose, const void* mx, const void* my,
-    const void* c00, const void* c01, const void* c11, const void* w,
-    const void* w_prev, const void* alive, const void* z, const void* zmask,
-    void* out, void* unused_out, void* cand_m, void* stream) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      zb < 1 || M < 1 || M > 32 * 32)
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+Params unpack_params(const float* params) {
   Params prm;
   prm.r_max = params[0];
   prm.r_min = params[1];
@@ -560,15 +607,31 @@ extern "C" int map_update2d_launch(
   prm.birth_w = params[9];
   prm.t_r = params[10];
   prm.t_b = params[11];
+  return prm;
+}
+
+template <int kMode>
+int launch(int P, int M, int Zc, int T, int threads, int smem, int zb,
+           int m_off, const float* params, const void* colsum_in,
+           const void* pose, const void* mx, const void* my, const void* c00,
+           const void* c01, const void* c11, const void* w,
+           const void* w_prev, const void* alive, const void* z,
+           const void* zmask, void* out, void* unused_out, void* cand_m,
+           void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      zb < 1 || M < 1 || M > 32 * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params prm = unpack_params(params);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        map_update2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        map_update2d_kernel<kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  map_update2d_kernel<<<P, threads, smem, st>>>(
-      prm, M, Zc, T, zb, static_cast<const float*>(pose),
+  map_update2d_kernel<kMode><<<P, threads, smem, st>>>(
+      prm, M, Zc, T, zb, m_off, static_cast<const float*>(colsum_in),
+      static_cast<const float*>(pose),
       static_cast<const float*>(mx), static_cast<const float*>(my),
       static_cast<const float*>(c00), static_cast<const float*>(c01),
       static_cast<const float*>(c11), static_cast<const float*>(w),
@@ -577,4 +640,43 @@ extern "C" int map_update2d_launch(
       static_cast<float*>(out), static_cast<bool*>(unused_out),
       static_cast<int64_t*>(cand_m));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// threads, smem and zb come from the wrapper's launch_plan.  out: one float
+// buffer of 12 planes [P, M] (w, w_prev, pd, K00, K01, K10, K11, cov_upd
+// 00/01/11, z_exp r/b), then col_sum [P, Zc], then cand_w [P, T * Zc].
+extern "C" int map_update2d_launch(
+    int P, int M, int Zc, int T, int threads, int smem, int zb,
+    const float* params, const void* pose, const void* mx, const void* my,
+    const void* c00, const void* c01, const void* c11, const void* w,
+    const void* w_prev, const void* alive, const void* z, const void* zmask,
+    void* out, void* unused_out, void* cand_m, void* stream) {
+  return launch<kWhole>(P, M, Zc, T, threads, smem, zb, 0, params, nullptr,
+                       pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+                       zmask, out, unused_out, cand_m, stream);
+}
+
+// The block form on a block of M slots (the global slots m_off ..
+// m_off + M - 1).  tail == 0 (kHead): out as above with plane 0 (w)
+// unwritten and col_sum the block's sums without clutter; unused_out,
+// cand_m and colsum_in unused.  tail == 1 (kTail): colsum_in [P, Zc] the
+// global column sums with clutter; out holds w [P, M] then cand_w
+// [P, T * Zc]; the picks are global slot numbers.
+extern "C" int map_update2d_block_launch(
+    int tail, int P, int M, int Zc, int T, int threads, int smem, int zb,
+    int m_off, const float* params, const void* colsum_in, const void* pose,
+    const void* mx, const void* my, const void* c00, const void* c01,
+    const void* c11, const void* w, const void* w_prev, const void* alive,
+    const void* z, const void* zmask, void* out, void* unused_out,
+    void* cand_m, void* stream) {
+  return tail ? launch<kTail>(P, M, Zc, T, threads, smem, zb, m_off, params,
+                              colsum_in, pose, mx, my, c00, c01, c11, w,
+                              w_prev, alive, z, zmask, out, unused_out,
+                              cand_m, stream)
+              : launch<kHead>(P, M, Zc, T, threads, smem, zb, m_off, params,
+                              colsum_in, pose, mx, my, c00, c01, c11, w,
+                              w_prev, alive, z, zmask, out, unused_out,
+                              cand_m, stream);
 }

@@ -161,10 +161,11 @@ class FastSLAMFilter:
                 use_model_noise: bool = True, use_input_noise: bool = False,
                 input_cov: torch.Tensor | None = None,
                 input_noise: torch.Tensor | None = None,
-                lmk=None) -> FastSLAMState:
+                lmk=None, mesh=None) -> FastSLAMState:
         """FastSLAM::predict (FastSLAM.hpp:360-386): propagate the poses
         (``noise`` [P, 3], drawn from ``gen`` when None) and grow the alive
-        landmarks' covariances."""
+        landmarks' covariances.  Each particle on its own: under ``mesh``
+        (the state a rank's block) nothing changes."""
         lmk = self.lmk if lmk is None else lmk
         pose = self.motion.sample(
             state.particles.pose, u, dt, noise=noise, gen=gen,
@@ -188,13 +189,13 @@ class FastSLAMFilter:
         ``has_z``: whether ``z_mask`` has a measurement, when the caller
         knows it on the host.  An empty set only advances the update
         counter.  ``mesh``: the state is this rank's block of the particle
-        axis (``parallel/mesh.py``); FastSLAM 1.0 only."""
-        if mesh is not None and self.cfg.max_hypotheses > 1:
-            # the global child keep, the Murty lane budget and the
-            # hypothesis-major child order cross the particle blocks
+        axis (``parallel/mesh.py``); the steps that cross the blocks (the
+        weights, MH's lane budget, child keep and hypothesis-major order)
+        take the unsharded decisions on gathered vectors."""
+        if getattr(mesh, "map_world", 1) > 1:
             raise NotImplementedError(
-                "MH-FastSLAM under a particle mesh is not ported yet "
-                "(ROADMAP.md, Queue 1: MH-FastSLAM under a mesh)")
+                "FastSLAM under a map mesh is not ported yet (ROADMAP.md, "
+                "Queue 1: VP RB-PHD and FastSLAM under the map mesh)")
         if has_z is None:
             has_z = bool(z_mask.any())
         if not has_z:
@@ -407,17 +408,25 @@ class FastSLAMFilter:
 
     def _update_body_mh_grow(self, state: FastSLAMState, z, z_mask, u0,
                              table, lm_idx, row_valid, pd_rank, gate_tab,
-                             meas) -> FastSLAMState:
+                             meas, mesh=None) -> FastSLAMState:
         """MH-FastSLAM with the reference's particle-set growth
         (FastSLAM.hpp:504-563, resampleWithMapCopy :728-757), selection
         before materialization: every ``P_cap x H`` hypothesis is scored
         from the table (its post-update weight is ``w_p / n_h * exp(sum of
         its gated associations' likelihoods)``), the resample-or-keep rule
         runs on that flat distribution, and only the selected hypothesis of
-        each surviving slot is applied."""
+        each surviving slot is applied.
+
+        Under ``mesh`` the rows are the rank's block: the ``[P, H]``
+        hypothesis weights and the live counts are all-gathered, so the
+        keep, force and resample decisions and the flat order ``h * P_cap +
+        p`` run over the global ``P_cap`` as unsharded; the selected
+        parents' rows, with their DA rows, come through the packed
+        ancestor gather."""
         cfg = self.cfg
         pose, gm = state.particles.pose, state.gm
-        P_cap = pose.shape[0]
+        P_loc = pose.shape[0]
+        P_cap = P_loc if mesh is None else mesh.p_global
         P_init = cfg.n_particles
         H = cfg.max_hypotheses
         NMZ = cfg.nmz_capacity
@@ -432,7 +441,7 @@ class FastSLAMFilter:
         das, scores, valid = murty_gated(
             table, H, n_m, real_cols=nZ, child_cap=cfg.murty_child_cap,
             prune_window=cfg.max_da_loglik_diff,
-            budget=cfg.murty_lane_budget)               # [Pc,H,NMZ], [Pc,H]
+            budget=cfg.murty_lane_budget, mesh=mesh)    # [Pc,H,NMZ], [Pc,H]
         keep = (valid & (scores[:, :1] - scores <= cfg.max_da_loglik_diff)
                 & alive_p[:, None])
         keep[:, 0] = alive_p                            # best always kept
@@ -453,10 +462,15 @@ class FastSLAMFilter:
         hyp_lw = torch.where(
             keep, log_w[:, None] - torch.log(n_h.to(log_w.dtype))[:, None]
             + L_sum, _NEG_INF)
+        count = torch.where(alive_p, n_h, 0)
+        if mesh is not None:
+            both = mesh.all_gather(torch.cat(
+                [hyp_lw, count[:, None].to(hyp_lw.dtype)], dim=1))
+            hyp_lw, count = both[:, :H], both[:, H]
         flat_lw = hyp_lw.T.reshape(-1)                  # h * P_cap + p
 
         # resampleWithMapCopy (FastSLAM.hpp:728-757)
-        count = torch.where(alive_p, n_h, 0).sum()
+        count = count.sum()
         force = count > P_cap
         gates_met = (
             (state.n_updates + 1 >= cfg.min_updates_before_resample)
@@ -486,13 +500,18 @@ class FastSLAMFilter:
 
         # materialize only the selected hypotheses
         g = resample_ops.gather_particles(
-            {"pose": pose, "gm": gm, "cand": state.cand}, parent)
+            {"pose": pose, "gm": gm, "cand": state.cand, "das": das,
+             "table": table, "lm_idx": lm_idx, "row_valid": row_valid,
+             "pd_rank": pd_rank}, parent, mesh)
+        if mesh is not None:
+            parent, hyp, out_alive, new_log_w = (
+                mesh.block(x) for x in (parent, hyp, out_alive, new_log_w))
+        da = torch.gather(g["das"], 1, hyp[:, None, None].expand(
+            -1, 1, NMZ))[:, 0]
         gm2, z_used, _, n_in_fov = self._apply_hypothesis(
-            g["pose"], g["gm"], z, z_mask, das[parent, hyp],
-            table.index_select(0, parent), lm_idx.index_select(0, parent),
-            row_valid.index_select(0, parent),
-            pd_rank.index_select(0, parent),
-            torch.zeros(P_cap, dtype=pose.dtype, device=dev), meas)
+            g["pose"], g["gm"], z, z_mask, da, g["table"], g["lm_idx"],
+            g["row_valid"], g["pd_rank"],
+            torch.zeros(P_loc, dtype=pose.dtype, device=dev), meas)
         gm2 = self._prune(gm2, nZ)
         gm2, cand = self._candidates(g["pose"], gm2, g["cand"], z, z_mask,
                                      z_used, n_in_fov, meas)
@@ -519,7 +538,7 @@ class FastSLAMFilter:
         if H > 1 and cfg.mh_grow:
             return self._update_body_mh_grow(
                 state, z, z_mask, u0, table, lm_idx, row_valid, pd_rank,
-                gate_tab, meas)
+                gate_tab, meas, mesh)
         if H == 1:
             da, _ = hungarian(table)
             gm, z_used, log_w, n_in_fov = self._apply_hypothesis(
@@ -534,7 +553,7 @@ class FastSLAMFilter:
                 table, H, row_valid.sum(dim=1), real_cols=nZ,
                 child_cap=cfg.murty_child_cap,
                 prune_window=cfg.max_da_loglik_diff,
-                budget=cfg.murty_lane_budget)
+                budget=cfg.murty_lane_budget, mesh=mesh)
             keep = valid & (scores[:, :1] - scores <= cfg.max_da_loglik_diff)
             das = torch.where(keep[:, :, None], das, das[:, :1, :])
             split_log_w = state.particles.log_w - torch.log(
@@ -564,25 +583,36 @@ class FastSLAMFilter:
         # resampling back to n_particles (FastSLAM.hpp:728-757)
         allow = ((state.n_updates + 1 >= cfg.min_updates_before_resample)
                  & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
+        P_all = P if mesh is None else mesh.p_global
+        rows = None
         if H == 1:
             anc, new_log_w, did = resample_ops.maybe_resample(
                 u0, log_w, cfg.ess_threshold, allow, mesh)
         else:
-            anc = resample_ops.systematic_ancestors(u0, log_w, P)
-            new_log_w = torch.full((P,), -math.log(P), dtype=log_w.dtype,
-                                   device=log_w.device)
+            if mesh is not None:
+                # the copies in the unsharded order h * P_all + p
+                log_w = mesh.all_gather(log_w.view(H, P).T).T.reshape(-1)
+            anc = resample_ops.systematic_ancestors(u0, log_w, P_all)
+            new_log_w = torch.full((P,), -math.log(P_all),
+                                   dtype=log_w.dtype, device=log_w.device)
             did = torch.ones((), dtype=torch.bool, device=log_w.device)
+            if mesh is not None:
+                # copy h * P_all + p sits in row h * P + p % P of rank
+                # p // P's block of the gathered rows
+                h, p = anc // P_all, anc % P_all
+                rows = (p // P) * (H * P) + h * P + p % P
         g = resample_ops.gather_particles(
-            {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov}, anc,
-            mesh)
+            {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov},
+            anc if rows is None else rows, mesh)
         zero = torch.zeros_like(state.n_updates)
         # the recorded ancestry indexes the previous step's P particles
         # (copy h * P + p descends from particle p); under a mesh, the
         # global ones
+        parent = anc % P_all
         return FastSLAMState(
             particles=ParticleState(
                 pose=g["pose"], log_w=new_log_w,
-                parent=anc % P if mesh is None else mesh.block(anc)),
+                parent=parent if mesh is None else mesh.block(parent)),
             gm=g["gm"], cand=g["cand"], n_in_fov=g["fov"],
             n_updates=torch.where(did, zero, state.n_updates + 1),
             n_meas=torch.where(did, zero, state.n_meas + nZ))

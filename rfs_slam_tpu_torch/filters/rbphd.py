@@ -14,7 +14,12 @@ kernel for the 2-D range-bearing model and the general plain-PyTorch
 branch for every other model (the Victoria Park model's 3-D maps).
 
 Map state is plane-major: means ``[D, P, M]``, packed covariances
-``[T, P, M]``.  Randomness comes from the caller: ``predict`` takes
+``[T, P, M]``.  Under a particle mesh (``parallel/mesh.py``) the state is
+a rank's block of the particles and only resampling communicates; under a
+particles x map mesh (``MapMesh``, the 2-D range-bearing filter) it is
+also a block of each map's slots, and the steps across slots communicate
+over the map group (see ``_map_update``, ``_importance_weights``).
+Randomness comes from the caller: ``predict`` takes
 standard-normal motion draws ``[P, 3]`` and input draws ``[P, DU]``, and
 ``update`` the resampling offset ``u0``, or draws them from a
 ``torch.Generator`` on the state's device.  Nothing in a step waits on the
@@ -37,11 +42,19 @@ from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops import resample as resample_ops
 from rfs_slam_tpu_torch.ops.ekf import (InnovationGates, correct_all,
                                         correct_single)
-from rfs_slam_tpu_torch.ops.kernels.map_update2d import (fused_map_update2d,
+from rfs_slam_tpu_torch.ops.kernels.map_update2d import (block_sum,
+                                                         fused_map_update2d,
+                                                         map_update2d_block,
                                                          pack_params)
 from rfs_slam_tpu_torch.ops.rfs_likelihood import rfs_log_likelihood
+from rfs_slam_tpu_torch.parallel.mesh import MapMesh
 
 LOG_TINY = -80.0  # log-domain stand-in for denorm_min (RBPHDFilter.hpp:743)
+
+
+def _map_mesh(mesh):
+    """``mesh`` when it splits the maps (a :class:`MapMesh`), else None."""
+    return mesh if isinstance(mesh, MapMesh) else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,17 +146,26 @@ class RBPHDFilter:
                 use_model_noise: bool = True, use_input_noise: bool = False,
                 input_cov: torch.Tensor | None = None,
                 input_noise: torch.Tensor | None = None,
-                birth_check: bool = True, meas=None) -> RBPHDState:
+                birth_check: bool = True, meas=None,
+                mesh=None) -> RBPHDState:
         """Reference: RBPHDFilter::predict (RBPHDFilter.hpp:416-442).
 
         ``noise``: [P, 3] standard-normal motion draws, ``input_noise``:
         [P, DU] input draws; drawn from ``gen`` when None.  ``meas``
         overrides the wired measurement model for the births (the Victoria
-        Park frame's model carries its scan).
+        Park frame's model carries its scan).  ``mesh``: the state is this
+        rank's block (``parallel/mesh.py``); under a map mesh the births
+        run on the map gathered over the map group.
         """
+        mm = _map_mesh(mesh)
         gm, birth = state.gm, state.birth
         if birth_check:
+            if mm is not None:
+                self._check_map_mesh(meas, gm.dim, state.last_z.shape[-1])
+                state = dataclasses.replace(state, gm=mm.gather_map(gm))
             gm, birth = self._add_birth_gaussians(state, meas)
+            if mm is not None:
+                gm = mm.map_block_gm(gm)
         pose = self.motion.sample(
             state.particles.pose, u, dt, noise=noise, gen=gen,
             use_model_noise=use_model_noise, use_input_noise=use_input_noise,
@@ -274,8 +296,11 @@ class RBPHDFilter:
         caller knows it on the host (saves a device sync).  ``meas``
         overrides the wired measurement model for this update.  ``mesh``:
         the state is this rank's block of the particle axis
-        (``parallel/mesh.py``); only the resampling phase sees it.
+        (``parallel/mesh.py``), where only the resampling phase
+        communicates; under a map mesh also a block of the slots.
         """
+        if _map_mesh(mesh) is not None:
+            self._check_map_mesh(meas, state.gm.dim, z.shape[-1])
         if has_z is None:
             has_z = bool(z_mask.any())
         if not has_z:
@@ -286,19 +311,41 @@ class RBPHDFilter:
                                  meas if meas is not None else self.meas,
                                  mesh)
 
+    def _check_map_mesh(self, meas, D, dz):
+        """A map mesh runs the 2-D range-bearing filter's path only."""
+        if not self._fused_2d(meas if meas is not None else self.meas, D,
+                              dz):
+            raise NotImplementedError(
+                "RB-PHD under a map mesh runs the 2-D range-bearing filter "
+                "only; the Victoria Park path is not ported yet "
+                "(ROADMAP.md, Queue 1: VP RB-PHD and FastSLAM under the map "
+                "mesh)")
+
+    def _fused_2d(self, meas, D, dz) -> bool:
+        """Whether the map update runs the ``map_update2d`` kernel."""
+        return (isinstance(meas, RangeBearing) and D == 2 and dz == 2
+                and tuple(self.gates.wrap_dims) == (1,))
+
     def _update_body(self, state, z, z_mask, u0, gen, meas,
                      mesh=None) -> RBPHDState:
         cfg = self.cfg
         pose = state.particles.pose
         nZ = z_mask.sum(dtype=torch.int32)
+        mm = _map_mesh(mesh)
 
         gm_full, log_w, unused, n_in_fov, clutter_z = self._map_update(
-            state, z, z_mask, meas)
+            state, z, z_mask, meas, mm)
         if not cfg.use_cluster_process:
             log_w = self._importance_weights(log_w, pose, gm_full, z, z_mask,
-                                             clutter_z, nZ, meas)
-        gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
-                               cfg.merge_inflation)
+                                             clutter_z, nZ, meas, mm)
+        if mm is None:
+            gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
+                                   cfg.merge_inflation)
+        else:
+            # the merge pairs slots over the whole map in weight order
+            gm_full = mm.map_block_gm(gm_ops.merge(
+                mm.gather_map(gm_full), cfg.merge_threshold,
+                cfg.merge_inflation))
         gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
         if u0 is None:
             u0 = torch.rand((), generator=gen, dtype=pose.dtype,
@@ -306,12 +353,19 @@ class RBPHDFilter:
         return self._resample_phase(state, gm_full, log_w, unused, n_in_fov,
                                     z, nZ, u0, mesh)
 
-    def _map_update(self, state: RBPHDState, z, z_mask, meas=None):
+    def _map_update(self, state: RBPHDState, z, z_mask, meas=None,
+                    mesh: MapMesh | None = None):
         """Map-update phase (RBPHDFilter.hpp:543-725): the head (the
         ``map_update2d`` kernel for the 2-D range-bearing model, else
         :meth:`_map_update_head`), then the exact top-k over the
         ``Zc * new_per_z`` survivors, ``m + K nu`` at the selected cells only
         (KalmanFilter.hpp:261-342), and ``replace_weakest``.
+
+        Under a map mesh the head is the kernel's block form on this rank's
+        slots (``map_update2d_block``: the column sums, picks, unused flags
+        and in-view counts global), and the top-k and ``replace_weakest``
+        run on the map and the head's planes gathered over the map group;
+        the returned map is this rank's block.
 
         Returns ``(gm_full, log_w, unused, n_in_fov, clutter_z)``.
         """
@@ -321,7 +375,8 @@ class RBPHDFilter:
         pose = state.particles.pose
         D = gm.dim
         Zc, dz = z.shape
-        T_pz = min(cfg.new_per_z, gm.capacity)
+        T_pz = min(cfg.new_per_z,
+                   gm.capacity if mesh is None else mesh.m_global)
         c = meas.clutter_intensity(z, None)
         clutter_z = (c.to(pose.dtype).expand(Zc)
                      if isinstance(c, torch.Tensor) else
@@ -329,13 +384,16 @@ class RBPHDFilter:
                                 device=pose.device))
         log_w = state.particles.log_w
 
-        if (isinstance(meas, RangeBearing) and D == 2 and dz == 2
-                and tuple(self.gates.wrap_dims) == (1,)):
-            fo = fused_map_update2d(pose, gm.mean[0], gm.mean[1], gm.cov[0],
-                                    gm.cov[1], gm.cov[2], gm.w, gm.w_prev,
-                                    gm.alive, z, z_mask, self._map_params,
-                                    new_per_z=T_pz)
-            n_in_fov = (fo.pd != 0.0).sum(dim=1, dtype=torch.int32)
+        if self._fused_2d(meas, D, dz):
+            args = (pose, gm.mean[0], gm.mean[1], gm.cov[0], gm.cov[1],
+                    gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
+                    self._map_params)
+            if mesh is None:
+                fo = fused_map_update2d(*args, new_per_z=T_pz)
+                n_in_fov = (fo.pd != 0.0).sum(dim=1, dtype=torch.int32)
+            else:
+                fo, n_in_fov = map_update2d_block(
+                    *args, T_pz, mesh.m_offset, mesh.gather_blocks)
             w_new, w_prev, unused, col_sum = (fo.w, fo.w_prev, fo.unused,
                                               fo.col_sum)
             cand_w, cand_m = fo.cand_w, fo.cand_m
@@ -347,10 +405,25 @@ class RBPHDFilter:
         if cfg.use_cluster_process:
             # single-cluster-process weighting (RBPHDFilter.hpp:652-666)
             w_km_sum = torch.where(gm.alive, gm.w, 0.0).sum(dim=1)
+            if mesh is not None:
+                w_km_sum = block_sum(mesh.gather_blocks({"w": w_km_sum})["w"])
             log_prod = torch.where(z_mask[None, :], torch.log(col_sum),
                                    0.0).sum(dim=1)
             log_w = log_w + w_km_sum + log_prod
         gm_old = dataclasses.replace(gm, w=w_new, w_prev=w_prev)
+        if mesh is not None:
+            # the picks name any slot: the map and the head's planes whole
+            g = mesh.gather_slots({
+                **{k: (v, 2) for k, v in (("mean", gm.mean), ("cov", gm.cov),
+                                          ("K", K_planes),
+                                          ("z_exp", zexp_planes),
+                                          ("cov_upd", covupd_planes))},
+                **{k: (getattr(gm_old, k), 1)
+                   for k in ("w", "w_prev", "alive")}})
+            gm = gm_old = GMState(g["mean"], g["cov"], g["w"], g["w_prev"],
+                                  g["alive"])
+            K_planes, zexp_planes, covupd_planes = (g["K"], g["z_exp"],
+                                                    g["cov_upd"])
 
         # new Gaussians (RBPHDFilter.hpp:675-683): exact top-k of the
         # survivors; cand_w is laid out (t-major, z-minor)
@@ -374,6 +447,8 @@ class RBPHDFilter:
             for d in range(D)])
         gm_full = gm_ops.replace_weakest(gm_old, new_mean, new_cov, top_w,
                                          top_w > 0.0, sorted_desc=True)
+        if mesh is not None:
+            gm_full = mesh.map_block_gm(gm_full)
         return gm_full, log_w, unused, n_in_fov, clutter_z
 
     def _map_update_head(self, meas, gm: GMState, pose, z, z_mask,
@@ -464,8 +539,15 @@ class RBPHDFilter:
         )
 
     def _importance_weights(self, log_w, pose, gm: GMState, z, z_mask,
-                            clutter_z, nZ, meas=None):
-        """Reference: RBPHDFilter::importanceWeighting (hpp:728-819)."""
+                            clutter_z, nZ, meas=None,
+                            mesh: MapMesh | None = None):
+        """Reference: RBPHDFilter::importanceWeighting (hpp:728-819).
+
+        Under a map mesh ``gm`` is this rank's slots: the eval points are
+        the top of every block's own top-E candidates gathered over the
+        map group (stable ties: the lower slot first), and the intensity
+        and weight sums are the blocks' partial sums added in block order,
+        so every rank of the group computes the same weights."""
         cfg = self.cfg
         meas = meas if meas is not None else self.meas
         D = gm.dim
@@ -486,6 +568,25 @@ class RBPHDFilter:
         eval_mean = torch.gather(gm.mean, 2,
                                  eval_idx[None].expand(D, -1, -1))
         eval_pd = torch.gather(pd_eval, 1, eval_idx)
+        if mesh is not None:
+            # each block's top-E are in (weight desc, slot asc) order and
+            # the blocks in slot order: a stable top-E of the blocks'
+            # lists in block order is the top-E over the whole map
+            got = mesh.gather_blocks({
+                "score": torch.gather(score, 1, eval_idx),
+                "valid": eval_valid, "mean": eval_mean.movedim(0, -1),
+                "pd": eval_pd})
+
+            def by_block(x):             # [P, B * E_b, ...], block-major
+                x = x.movedim(0, 1)
+                return x.reshape(x.shape[:1] + (-1,) + x.shape[3:])
+
+            _, pick = planar.topk_stable(by_block(got["score"]), E)
+            eval_valid = torch.gather(by_block(got["valid"]), 1, pick)
+            eval_pd = torch.gather(by_block(got["pd"]), 1, pick)
+            eval_mean = torch.gather(
+                by_block(got["mean"]), 1,
+                pick[:, :, None].expand(-1, -1, D)).movedim(-1, 0)
         n_eval = eval_valid.sum(dim=1)
 
         # GM intensity at the eval points before/after the update (hpp:765-800)
@@ -497,15 +598,23 @@ class RBPHDFilter:
         lik_em = torch.exp(-0.5 * md2_em) / norm_m[:, None, :]
         lik_em = torch.where(torch.isfinite(lik_em) & gm.alive[:, None, :],
                              lik_em, zero)
-        int_before = gaussian.TINY + torch.einsum(
-            "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w_prev, zero))
-        int_after = gaussian.TINY + torch.einsum(
-            "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w, zero))
+        sums = {
+            "int_before": torch.einsum(
+                "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w_prev, zero)),
+            "int_after": torch.einsum(
+                "pem,pm->pe", lik_em, torch.where(gm.alive, gm.w, zero)),
+            "sum_before": torch.where(gm.alive, gm.w_prev, zero).sum(dim=1),
+            "sum_after": torch.where(gm.alive, gm.w, zero).sum(dim=1)}
+        if mesh is not None:
+            # the blocks' partial sums, added in block order
+            sums = {k: block_sum(v)
+                    for k, v in mesh.gather_blocks(sums).items()}
+        int_before = gaussian.TINY + sums["int_before"]
+        int_after = gaussian.TINY + sums["int_after"]
         log_int_ratio = torch.where(
             eval_valid, torch.log(int_before) - torch.log(int_after),
             zero).sum(dim=1)
-        sum_before = torch.where(gm.alive, gm.w_prev, zero).sum(dim=1)
-        sum_after = torch.where(gm.alive, gm.w, zero).sum(dim=1)
+        sum_before, sum_after = sums["sum_before"], sums["sum_after"]
 
         # RFS measurement likelihood at the eval points: S = R (zero
         # landmark covariance), gated (hpp:847-863)

@@ -366,7 +366,7 @@ def ambiguous_lanes(tables, real_rows, real_cols, prune_window):
 def murty_gated(tables: torch.Tensor, k: int, real_rows: torch.Tensor,
                 real_cols=None, child_cap: int | None = None,
                 prune_window: float | None = None, budget: int | None = None,
-                return_overflow: bool = False):
+                return_overflow: bool = False, mesh=None):
     """Batched :func:`murty` with per-lane ambiguity gating.
 
     Solves the root assignment of every lane, classifies a lane ambiguous
@@ -378,15 +378,23 @@ def murty_gated(tables: torch.Tensor, k: int, real_rows: torch.Tensor,
     runs the full expansion.  The budget and the overflow count stay on the
     device.
 
+    Under ``mesh`` (``parallel/mesh.py``) the lanes are the rank's block of
+    the particle axis and the budget is global: the lanes' keys are
+    all-gathered, every rank takes the unsharded top-``budget`` and runs
+    the expansion on the selected lanes of its block, in a fixed batch of
+    ``min(budget, P_local)`` lanes (the unselected ones padding it).
+
     ``real_rows [P]``; ``real_cols`` an int or a 0-dim tensor.  Returns
     ``(assignments [P, k, n], scores [P, k], valid [P, k])`` (+ ``overflow``,
-    the ambiguous lanes beyond the budget, with ``return_overflow``).
+    the ambiguous lanes beyond the budget, with ``return_overflow``; under
+    ``mesh`` the global count).
     """
     if prune_window is None:
         raise ValueError("murty_gated requires prune_window")
     P, n, _ = tables.shape
     dev = tables.device
-    if budget is None or budget >= P or k <= 1:
+    if budget is None or budget >= (P if mesh is None else mesh.p_global) \
+            or k <= 1:
         das, scores, valid = murty(tables, k, real_rows=real_rows,
                                    real_cols=real_cols, child_cap=child_cap,
                                    prune_window=prune_window)
@@ -401,8 +409,22 @@ def murty_gated(tables: torch.Tensor, k: int, real_rows: torch.Tensor,
     ambiguous = root_ok & (ub2 >= tots - prune_window)
     # most ambiguous first: the 2nd-best bound closest to the best
     amb_key = torch.where(ambiguous, ub2 - tots, _NEG_INF)
-    _, sel = planar.topk_stable(amb_key, budget)                    # [A]
-    sel_amb = ambiguous[sel]
+    if mesh is None:
+        _, sel = planar.topk_stable(amb_key, budget)                # [A]
+        sel_amb = ambiguous[sel]
+        n_amb, n_sel_amb = ambiguous.sum(), sel_amb.sum()
+    else:
+        both = mesh.all_gather(torch.stack(
+            [amb_key, ambiguous.to(amb_key.dtype)], dim=1))
+        amb_all = both[:, 1] > 0
+        _, sel_all = planar.topk_stable(both[:, 0], budget)
+        n_amb, n_sel_amb = amb_all.sum(), amb_all[sel_all].sum()
+        chosen = mesh.block(torch.zeros_like(amb_all).index_fill_(
+            0, sel_all, True))
+        # this block's selected lanes first (ascending), then padding
+        sel = torch.sort((~chosen).int(), stable=True)[1][
+            :min(budget, P)]
+        sel_amb = chosen[sel] & ambiguous[sel]
     das_s, sc_s, va_s = murty(tables[sel], k, real_rows=real_rows[sel],
                               real_cols=real_cols, child_cap=child_cap,
                               prune_window=prune_window)
@@ -422,8 +444,7 @@ def murty_gated(tables: torch.Tensor, k: int, real_rows: torch.Tensor,
     valid = valid.index_copy(0, sel, torch.where(sel_amb[:, None], va_s,
                                                  valid[sel]))
     if return_overflow:
-        overflow = (ambiguous.sum() - sel_amb.sum()).to(torch.int32)
-        return das, scores, valid, overflow
+        return das, scores, valid, (n_amb - n_sel_amb).to(torch.int32)
     return das, scores, valid
 
 

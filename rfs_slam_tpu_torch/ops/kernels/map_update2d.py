@@ -12,6 +12,17 @@ package.
 
 :func:`fused_map_update2d` launches the kernel for CUDA tensors and runs
 :func:`map_update2d_plain` for CPU tensors; nothing falls back.
+
+The block form (the particles x map mesh, ``parallel/mesh.py``) runs the
+update on a block of the slot axis.  The column sums span every slot, so
+it is two launches: :func:`map_update2d_head` (the plane outputs and the
+block's column sums without clutter) and :func:`map_update2d_tail` (given
+the global column sums: the block's ``w``, unused flags and top T, as
+global slot numbers).  :func:`combine_col_sums` adds the blocks' sums in
+block order and :func:`merge_block_picks` takes the global top T of the
+blocks' picks by the kernel's rule; :func:`map_update2d_block` runs the
+four over the ranks of a map group and :func:`map_update2d_blocks` over
+blocks in one process.  Each has a twin on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rfs_slam_tpu_torch.core import planar
 from rfs_slam_tpu_torch.models.measurement import RangeBearing
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates, correct_all
 from rfs_slam_tpu_torch.ops.kernels import build
@@ -33,7 +45,8 @@ MAX_THREADS = 512    # 16 warps: two CTAs an SM (the kernel's launch bounds)
 SLOT_PLANES = 10     # per-slot words the kernel keeps in shared memory
 TABLE_BYTES = 96 * 1024  # the weight-table chunk's shared memory
 
-# kernel launches made by fused_map_update2d (the twin does not count)
+# kernel launches made by fused_map_update2d and the block form's head and
+# tail (the twin does not count)
 launches = 0
 
 
@@ -53,6 +66,28 @@ class FusedMapUpdate(NamedTuple):
     z_exp: torch.Tensor      # [2, P, M] expected (range, bearing)
 
 
+class MapUpdateHead(NamedTuple):
+    """The block form's first launch on a block of slots: the plane
+    outputs but ``w``, and the block's column sums without clutter."""
+
+    w_prev: torch.Tensor     # [P, M]
+    pd: torch.Tensor         # [P, M]
+    K: torch.Tensor          # [4, P, M]
+    cov_upd: torch.Tensor    # [3, P, M]
+    z_exp: torch.Tensor      # [2, P, M]
+    col_part: torch.Tensor   # [P, Zc] the block's table column sums
+
+
+class MapUpdateTail(NamedTuple):
+    """The block form's second launch: the block's share given the global
+    column sums.  ``cand_m`` holds global slot numbers."""
+
+    w: torch.Tensor          # [P, M]
+    unused: torch.Tensor     # [P, Zc] no positive cell in the block
+    cand_w: torch.Tensor     # [P, T * Zc] the block's top T per column
+    cand_m: torch.Tensor     # [P, T * Zc] int64
+
+
 def pack_params(meas: RangeBearing, gates: InnovationGates,
                 md_threshold: float, birth_w: float) -> tuple:
     """The kernel's 12 scalars, rounded to float32 as the kernel sees them:
@@ -65,10 +100,10 @@ def pack_params(meas: RangeBearing, gates: InnovationGates,
     return tuple(float(np.float32(float(v))) for v in vals)
 
 
-def map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
-                       z_mask, params, new_per_z: int = 8) -> FusedMapUpdate:
-    """The plain PyTorch twin: the JAX package's XLA formulas
-    (filters/rbphd.py:_map_update head) on any device."""
+def _plain_table(pose, mx, my, c00, c01, c11, w, alive, z, z_mask, params):
+    """The twin's head: Pd, the EKF quantities and the gated, not yet
+    normalised ``[P, Zc, M]`` weight table.  Returns ``(pd, close, corr,
+    w_tab)``."""
     (r_max, r_min, r_buf, pd_const, clutter, R00, R01, R11, md_t2, birth_w,
      t_r, t_b) = params
     R = torch.tensor([[R00, R01], [R01, R11]], dtype=w.dtype,
@@ -90,7 +125,16 @@ def map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
             & (corr.md2 <= md_t2) & (corr.likelihood > 0.0))
     w_tab = torch.where(cell, pd[:, None, :] * w[:, None, :]
                         * corr.likelihood, zero)
-    col_sum = clutter + w_tab.sum(dim=2)                        # [P, Zc]
+    return pd, close, corr, w_tab
+
+
+def _plain_tail(w, alive, pd, close, w_tab, col_sum, z_mask, birth_w,
+                new_per_z, m_offset: int = 0):
+    """The twin's tail given the column sums: the normalised table, the
+    missed-detection weights, the unused flags and the top ``new_per_z``
+    per column (slot numbers offset by ``m_offset``).  Returns ``(w,
+    unused, cand_w, cand_m)``."""
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
     w_tab = torch.where(z_mask[None, :, None], w_tab / col_sum[:, :, None],
                         zero)
 
@@ -108,12 +152,46 @@ def map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
         vals.append(vmax)
         idxs.append(am)
         v = v.scatter(2, am[:, :, None], 0.0)
+    cand_m = torch.cat(idxs, dim=1)
+    return (torch.where(alive, w_miss, w), unused, torch.cat(vals, dim=1),
+            cand_m + m_offset if m_offset else cand_m)
+
+
+def map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+                       z_mask, params, new_per_z: int = 8) -> FusedMapUpdate:
+    """The plain PyTorch twin: the JAX package's XLA formulas
+    (filters/rbphd.py:_map_update head) on any device."""
+    pd, close, corr, w_tab = _plain_table(pose, mx, my, c00, c01, c11, w,
+                                          alive, z, z_mask, params)
+    col_sum = params[4] + w_tab.sum(dim=2)                      # [P, Zc]
+    w_o, unused, cand_w, cand_m = _plain_tail(
+        w, alive, pd, close, w_tab, col_sum, z_mask, params[9], new_per_z)
     return FusedMapUpdate(
-        w=torch.where(alive, w_miss, w), w_prev=torch.where(alive, w, w_prev),
-        pd=pd, col_sum=col_sum, unused=unused,
-        cand_w=torch.cat(vals, dim=1), cand_m=torch.cat(idxs, dim=1),
+        w=w_o, w_prev=torch.where(alive, w, w_prev),
+        pd=pd, col_sum=col_sum, unused=unused, cand_w=cand_w, cand_m=cand_m,
         K=corr.K, cov_upd=corr.cov_upd, z_exp=corr.z_exp,
     )
+
+
+def map_update2d_head_plain(pose, mx, my, c00, c01, c11, w, w_prev, alive,
+                            z, z_mask, params) -> MapUpdateHead:
+    """The twin of the block form's head (:func:`map_update2d_head`)."""
+    pd, _, corr, w_tab = _plain_table(pose, mx, my, c00, c01, c11, w, alive,
+                                      z, z_mask, params)
+    return MapUpdateHead(w_prev=torch.where(alive, w, w_prev), pd=pd,
+                         K=corr.K, cov_upd=corr.cov_upd, z_exp=corr.z_exp,
+                         col_part=w_tab.sum(dim=2))
+
+
+def map_update2d_tail_plain(pose, mx, my, c00, c01, c11, w, alive, z,
+                            z_mask, params, col_sum, new_per_z: int = 8,
+                            m_offset: int = 0) -> MapUpdateTail:
+    """The twin of the block form's tail (:func:`map_update2d_tail`)."""
+    pd, close, _, w_tab = _plain_table(pose, mx, my, c00, c01, c11, w,
+                                       alive, z, z_mask, params)
+    return MapUpdateTail(*_plain_tail(w, alive, pd, close, w_tab, col_sum,
+                                      z_mask, params[9], new_per_z,
+                                      m_offset))
 
 
 class LaunchPlan(NamedTuple):
@@ -210,3 +288,199 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
                           col_sum=cs_o, unused=un_o, cand_w=cw_o,
                           cand_m=cm_o, K=planes[3:7], cov_upd=planes[7:10],
                           z_exp=planes[10:12])
+
+
+def _block_inputs(pose, mx, my, c00, c01, c11, w, w_prev, alive, z, z_mask,
+                  params, T):
+    """The launch plan and the checked inputs of a block-form launch."""
+    P, M = w.shape
+    Zc = z.shape[0]
+    plan = launch_plan(P, M, Zc, T)
+    if len(params) != N_PARAMS:
+        raise ValueError(f"map_update2d: {len(params)} params, "
+                         f"need {N_PARAMS}")
+    floats = [build.checked(t, torch.float32, pose.device, shape)
+              for t, shape in ((pose, (P, 3)), (mx, (P, M)), (my, (P, M)),
+                               (c00, (P, M)), (c01, (P, M)), (c11, (P, M)),
+                               (w, (P, M)), (w_prev, (P, M)), (z, (Zc, 2)))]
+    alive = build.checked(alive, torch.bool, pose.device, (P, M))
+    z_mask = build.checked(z_mask, torch.bool, pose.device, (Zc,))
+    return plan, (*floats[:8], alive, floats[8], z_mask)
+
+
+def _block_launch(tail, plan, params, m_offset, col_sum, ins, out, unused,
+                  cand_m, pose, shape):
+    global launches
+    P, M, Zc, T = shape
+    lib = build.load("map_update2d")
+    if lib.map_update2d_block_launch.argtypes is None:
+        lib.map_update2d_block_launch.argtypes = (
+            [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_float)]
+            + [ctypes.c_void_p] * 16)
+        lib.map_update2d_block_launch.restype = ctypes.c_int
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = lib.map_update2d_block_launch(
+        int(tail), P, M, Zc, T, *plan, int(m_offset), _c_params(tuple(params)),
+        ptr(col_sum), *(t.data_ptr() for t in ins), out.data_ptr(),
+        ptr(unused), ptr(cand_m), build.stream_of(pose))
+    if err != 0:
+        raise RuntimeError(f"map_update2d block launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+
+
+def map_update2d_head(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+                      z_mask, params) -> MapUpdateHead:
+    """The block form's first launch on a block of slots (``mx`` .. ``alive``
+    ``[P, M_block]``): the plane outputs but ``w`` and the block's column
+    sums without the clutter, in the kernel's order.  The kernel for CUDA
+    tensors, :func:`map_update2d_head_plain` for CPU tensors."""
+    if not pose.is_cuda:
+        return map_update2d_head_plain(pose, mx, my, c00, c01, c11, w,
+                                       w_prev, alive, z, z_mask, params)
+    P, M = w.shape
+    Zc = z.shape[0]
+    plan, ins = _block_inputs(pose, mx, my, c00, c01, c11, w, w_prev, alive,
+                              z, z_mask, params, 0)
+    n = P * M
+    out = torch.empty(12 * n + P * Zc, dtype=torch.float32,
+                      device=pose.device)
+    _block_launch(False, plan, params, 0, None, ins, out, None, None, pose,
+                  (P, M, Zc, 0))
+    planes = out[:12 * n].view(12, P, M)
+    return MapUpdateHead(w_prev=planes[1], pd=planes[2], K=planes[3:7],
+                         cov_upd=planes[7:10], z_exp=planes[10:12],
+                         col_part=out[12 * n:].view(P, Zc))
+
+
+def map_update2d_tail(pose, mx, my, c00, c01, c11, w, alive, z, z_mask,
+                      params, col_sum, new_per_z: int = 8,
+                      m_offset: int = 0) -> MapUpdateTail:
+    """The block form's second launch on the block of slots ``m_offset ..
+    m_offset + M_block - 1``, given the global column sums ``col_sum [P,
+    Zc]`` (clutter included): the block's ``w``, unused flags and top
+    ``new_per_z`` per column (global slot numbers).  The kernel for CUDA
+    tensors, :func:`map_update2d_tail_plain` for CPU tensors."""
+    if not pose.is_cuda:
+        return map_update2d_tail_plain(pose, mx, my, c00, c01, c11, w, alive,
+                                       z, z_mask, params, col_sum, new_per_z,
+                                       m_offset)
+    P, M = w.shape
+    Zc = z.shape[0]
+    T = new_per_z
+    plan, ins = _block_inputs(pose, mx, my, c00, c01, c11, w, w, alive, z,
+                              z_mask, params, T)
+    col_sum = build.checked(col_sum, torch.float32, pose.device, (P, Zc))
+    dev, n = pose.device, P * M
+    out = torch.empty(n + P * Zc * T, dtype=torch.float32, device=dev)
+    unused = torch.empty((P, Zc), dtype=torch.bool, device=dev)
+    cand_m = torch.empty((P, T * Zc), dtype=torch.int64, device=dev)
+    _block_launch(True, plan, params, m_offset, col_sum, ins, out, unused,
+                  cand_m, pose, (P, M, Zc, T))
+    return MapUpdateTail(w=out[:n].view(P, M), unused=unused,
+                         cand_w=out[n:].view(P, T * Zc), cand_m=cand_m)
+
+
+def block_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``parts [B, ...]`` added in block order: the same bits on every rank
+    of a map group (for B = 1 the part itself)."""
+    s = parts[0]
+    for b in range(1, parts.shape[0]):
+        s = s + parts[b]
+    return s
+
+
+def combine_col_sums(parts: torch.Tensor, clutter: float) -> torch.Tensor:
+    """The global column sums from the blocks' ``parts [B, P, Zc]``: the
+    blocks added in block order, then the clutter, as one launch adds
+    ``clutter + s`` (for B = 1 the one launch's sums)."""
+    return clutter + block_sum(parts)
+
+
+def merge_block_picks(cand_w, cand_m, unused, T: int):
+    """The global top T per column from the blocks' picks ``cand_w``,
+    ``cand_m [B, P, T * Zc]`` (t-major, z-minor) and unused flags ``[B, P,
+    Zc]``: value descending, the lower slot first among equals (the
+    kernel's first-argmax rule; each block's picks are in that order and
+    the blocks in slot order, so a stable sort of the blocks' lists in
+    block order keeps it); a column is unused where no block had a
+    positive cell.  Returns ``(cand_w, cand_m, unused)`` of one launch."""
+    B, P, TZ = cand_w.shape
+    Zc = TZ // T
+
+    def by_column(x):                      # [P, Zc, B * T], block-major
+        return x.view(B, P, T, Zc).permute(1, 3, 0, 2).reshape(P, Zc, B * T)
+
+    vals, pos = planar.topk_stable(by_column(cand_w), T)
+    idx = torch.gather(by_column(cand_m), 2, pos)
+    return (vals.transpose(1, 2).reshape(P, T * Zc),
+            idx.transpose(1, 2).reshape(P, T * Zc), unused.all(dim=0))
+
+
+def map_update2d_block(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+                       z_mask, params, new_per_z: int, m_offset: int,
+                       gather_blocks):
+    """The map update of this rank's block of slots (``m_offset ..``) under
+    a map group: the head launch, the blocks' column sums gathered and
+    combined (:func:`combine_col_sums`: the same bits on every rank), the
+    tail launch, and the blocks' picks, unused flags and in-view counts
+    gathered in one collective and merged (:func:`merge_block_picks`).
+    ``gather_blocks({name: x})`` returns every rank's ``x`` stacked on a
+    leading axis in rank order (``MapMesh.gather_blocks``).  Returns
+    ``(FusedMapUpdate, n_in_fov [P])``: the planes ``w`` .. ``z_exp`` of
+    the block, ``col_sum``, ``unused`` and the picks global (the same on
+    every rank of the group), and the in-view count over every slot."""
+    head = map_update2d_head(pose, mx, my, c00, c01, c11, w, w_prev, alive,
+                             z, z_mask, params)
+    col_sum = combine_col_sums(
+        gather_blocks({"col_part": head.col_part})["col_part"], params[4])
+    tail = map_update2d_tail(pose, mx, my, c00, c01, c11, w, alive, z,
+                             z_mask, params, col_sum, new_per_z, m_offset)
+    got = gather_blocks({
+        "cand_w": tail.cand_w, "cand_m": tail.cand_m, "unused": tail.unused,
+        "fov": (head.pd != 0.0).sum(dim=1, dtype=torch.int32)})
+    cand_w, cand_m, unused = merge_block_picks(
+        got["cand_w"], got["cand_m"], got["unused"], new_per_z)
+    n_in_fov = got["fov"].sum(dim=0, dtype=torch.int32)
+    return FusedMapUpdate(
+        w=tail.w, w_prev=head.w_prev, pd=head.pd, col_sum=col_sum,
+        unused=unused, cand_w=cand_w, cand_m=cand_m, K=head.K,
+        cov_upd=head.cov_upd, z_exp=head.z_exp), n_in_fov
+
+
+def map_update2d_blocks(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+                        z_mask, params, new_per_z: int = 8,
+                        n_blocks: int = 1,
+                        plain: bool = False) -> FusedMapUpdate:
+    """The block form over ``n_blocks`` equal blocks of the slot axis in one
+    process (what :func:`map_update2d_block` computes over a map group of
+    that many ranks), its outputs laid out as :func:`fused_map_update2d`'s:
+    the head and tail of each block, the combined column sums and the
+    merged picks.  ``plain``: the twins on any device."""
+    head_fn = map_update2d_head_plain if plain else map_update2d_head
+    tail_fn = map_update2d_tail_plain if plain else map_update2d_tail
+    P, M = w.shape
+    if M % n_blocks:
+        raise ValueError(f"{M} slots do not split into {n_blocks} blocks")
+    Mb = M // n_blocks
+    slots = [tuple(x[..., b * Mb:(b + 1) * Mb]
+                   for x in (mx, my, c00, c01, c11, w, w_prev, alive))
+             for b in range(n_blocks)]
+    heads = [head_fn(pose, *s, z, z_mask, params) for s in slots]
+    col_sum = combine_col_sums(torch.stack([h.col_part for h in heads]),
+                               params[4])
+    tails = [tail_fn(pose, *s[:6], s[7], z, z_mask, params, col_sum,
+                     new_per_z, b * Mb)
+             for b, s in enumerate(slots)]
+    cand_w, cand_m, unused = merge_block_picks(
+        *(torch.stack([getattr(t, k) for t in tails])
+          for k in ("cand_w", "cand_m", "unused")), new_per_z)
+
+    def cat(k, dim=-1):
+        return torch.cat([getattr(h, k) for h in heads], dim=dim)
+
+    return FusedMapUpdate(
+        w=torch.cat([t.w for t in tails], dim=1), w_prev=cat("w_prev"),
+        pd=cat("pd"), col_sum=col_sum, unused=unused, cand_w=cand_w,
+        cand_m=cand_m, K=cat("K"), cov_upd=cat("cov_upd"),
+        z_exp=cat("z_exp"))

@@ -4,10 +4,14 @@ width over :mod:`rfs_slam_tpu_torch.parallel.mesh`, and hold it to the
 unsharded run.
 
     python -m rfs_slam_tpu_torch.parallel.dryrun --ranks N \
-        [--path replay|vp|fastslam] [--steps S] [--device cpu]
+        [--path replay|vp|fastslam|mh] [--steps S] [--device cpu] \
+        [--map-shards B [--teacher-forced W]]
 
 It needs as many GPUs as ranks (NCCL), or ``--device cpu`` (gloo ranks on
-the CPU).
+the CPU).  ``--map-shards B`` runs the replay on the ``N / B`` x ``B``
+particles x map mesh; ``--teacher-forced W`` then steps it from the
+unsharded run's state at every step after ``W`` free steps, and holds
+each step to the unsharded one (:func:`teacher_forced`).
 """
 
 from __future__ import annotations
@@ -28,15 +32,20 @@ import torch
 import torch.distributed as dist
 
 from rfs_slam_tpu_torch.parallel.mesh import (gather_state, init_process_group,
-                                              make_mesh, shard_state)
+                                              make_mesh, make_mesh_2d,
+                                              shard_state)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BL_DUMP = os.path.join(HERE, os.pardir, os.pardir, "native", "bl_dump")
-PATHS = ("replay", "vp", "fastslam")
+PATHS = ("replay", "vp", "fastslam", "mh")
 WARMUP_STEPS = 3
 # the kernels each path launches
 PATH_KERNELS = {"replay": ("map_update2d", "merge2d"), "vp": ("merge3d",),
-                "fastslam": ("hungarian",)}
+                "fastslam": ("hungarian",), "mh": ("hungarian",)}
+# the stand-in config of each FastSLAM path (io/sim2d_xml.py's kinds)
+FASTSLAM_KINDS = {"fastslam": "fastslam", "mh": "mhfastslam"}
+# the paths a particles x map mesh runs
+MAP_PATHS = ("replay",)
 
 
 def prepare(paths, workdir: str) -> None:
@@ -50,9 +59,9 @@ def prepare(paths, workdir: str) -> None:
             vp_synth.write(os.path.join(workdir, "vp"), seed=0,
                            n_frames=steps)
             vp_synth.write_config(os.path.join(workdir, "vp", "config.xml"))
-        elif path == "fastslam":
-            sim2d_xml.write_config(os.path.join(workdir, "fastslam.xml"),
-                                   "fastslam")
+        elif path in FASTSLAM_KINDS:
+            sim2d_xml.write_config(os.path.join(workdir, f"{path}.xml"),
+                                   FASTSLAM_KINDS[path])
 
 
 def setup(path: str, steps: int, device: torch.device, workdir: str):
@@ -67,7 +76,9 @@ def setup(path: str, steps: int, device: torch.device, workdir: str):
     * ``vp``: RB-PHD on the seed-0 synthetic Victoria Park stream (P=100,
       M=512, Zc=24, D=3), ``_vp_common.make_frame_step``;
     * ``fastslam``: FastSLAM 1.0 on ``sim2d.generate(traj_seed=1,
-      noise_seed=1)`` with the stand-in config (P=200, M=128, NMZ=32).
+      noise_seed=1)`` with the stand-in config (P=200, M=128, NMZ=32);
+    * ``mh``: MH-FastSLAM the same way (H=3, 200 live of P_cap=600, lane
+      budget 200).
     """
     from rfs_slam_tpu_torch.apps import sim2d_common as loop
 
@@ -80,12 +91,12 @@ def setup(path: str, steps: int, device: torch.device, workdir: str):
         _, inputs = app.load_bl_dump(BL_DUMP, steps + 1)
         din = loop.device_inputs(inputs, device)
         return filt, sim2d_drive(filt, din, sim_cfg.dt)
-    if path == "fastslam":
+    if path in FASTSLAM_KINDS:
         from rfs_slam_tpu_torch.apps import fastslam2dsim as fs_app
         from rfs_slam_tpu_torch.io import sim2d
         from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d
 
-        cfg = XmlConfig(os.path.join(workdir, "fastslam.xml"))
+        cfg = XmlConfig(os.path.join(workdir, f"{path}.xml"))
         sim_cfg = load_sim2d(cfg)
         data = sim2d.generate(sim_cfg, traj_seed=1, noise_seed=1)
         zc = max(data.z.shape[1], 4)
@@ -110,11 +121,13 @@ def setup(path: str, steps: int, device: torch.device, workdir: str):
 
 
 def sim2d_drive(filt, din, dt: float):
-    """A ``drive`` over ``sim2d_common.steps`` on device inputs ``din``."""
+    """A ``drive`` over ``sim2d_common.steps`` on device inputs ``din``
+    (kept as its ``din`` and ``dt``)."""
     from rfs_slam_tpu_torch.apps import sim2d_common as loop
 
     def drive(gen, mesh):
         return lambda on_step: loop.steps(filt, din, gen, dt, on_step, mesh)
+    drive.din, drive.dt = din, dt
     return drive
 
 
@@ -156,20 +169,37 @@ def _host(obj):
 
 
 def drive_path(path: str, steps: int, device: torch.device, workdir: str,
-               sharded: bool = False, sync_check: bool = True) -> dict:
+               sharded: bool = False, sync_check: bool = True,
+               map_shards: int = 0) -> dict:
     """:func:`drive_logged` of a path (:func:`setup`), generator seed 0,
     after :data:`WARMUP_STEPS` steps of a run of its own: the one-time
     costs of a process's first steps stay out of the timed run."""
     for n in (WARMUP_STEPS, steps):
         filt, drive = setup(path, n, device, workdir)
         out = drive_logged(filt, drive, n, device, sharded,
-                           sync_check=sync_check)
+                           sync_check=sync_check, map_shards=map_shards)
     return out
+
+
+def sharded_mesh(filt, device: torch.device, map_shards: int = 0):
+    """The mesh of a sharded run over the process group's ranks: the
+    particle mesh, or with ``map_shards`` the ``ranks / map_shards`` x
+    ``map_shards`` particles x map mesh.  Its first collectives (one on
+    each axis) set the communicators up."""
+    p = getattr(filt, "p_cap", filt.cfg.n_particles)
+    if map_shards:
+        mesh = make_mesh_2d(dist.get_world_size() // map_shards, map_shards,
+                            p, filt.cfg.map_capacity, device)
+        mesh.map_all_gather(torch.zeros(1, device=device))
+    else:
+        mesh = make_mesh(p, device)
+    mesh.all_gather(torch.zeros(1, device=device))
+    return mesh
 
 
 def drive_logged(filt, drive, steps: int, device: torch.device,
                  sharded: bool = False, seed: int = 0,
-                 sync_check: bool = True) -> dict:
+                 sync_check: bool = True, map_shards: int = 0) -> dict:
     """One run of ``drive(gen, mesh)`` (see :func:`setup`) from generator
     ``seed``, sharded over the process group's ranks with
     ``sharded``.  The loop reads nothing back: on the card it runs under
@@ -179,15 +209,14 @@ def drive_logged(filt, drive, steps: int, device: torch.device,
     and gathered once after the loop.  Returns numpy arrays ``parent [S,
     P]``, ``log_w [S, P]``, ``pose [S, P, 3]``, ``did [S]`` and the whole
     ``final`` state, with the loop's wall time, kernel launches, and
-    (sharded) the collectives, ``p_local`` and the backend."""
+    (sharded) the collectives, ``p_local`` and the backend; with
+    ``map_shards``, over the particles x map mesh (:func:`sharded_mesh`)."""
     mesh = None
-    p = filt.cfg.n_particles
+    p = getattr(filt, "p_cap", filt.cfg.n_particles)
     if sharded:
-        mesh = make_mesh(p, device)
+        # its first collectives outside the timed loop and its sync check
+        mesh = sharded_mesh(filt, device, map_shards)
         p = mesh.p_local
-        # the first collective sets the communicator up, outside the
-        # timed loop and its sync check
-        mesh.all_gather(torch.zeros(1, device=device))
     log = dict(parent=torch.empty((steps, p), dtype=torch.long,
                                   device=device),
                log_w=torch.empty((steps, p), device=device),
@@ -235,12 +264,115 @@ def drive_logged(filt, drive, steps: int, device: torch.device,
     return out
 
 
+# tests/test_sharding.py's one-step tolerances (absolute; ``w`` relative
+# 1e-4 with 1e-5 absolute), for a step from the same state
+STEP_TOLERANCES = {"particles.pose": 1e-5, "particles.log_w": 1e-4,
+                   "gm.mean": 1e-4}
+
+
+def compare_states(sharded: dict, plain: dict) -> dict:
+    """A step's state (:func:`_host`) against the unsharded step's from
+    the same state and draws: every integer and bool field equal (``alive``
+    and ``parent`` among them); pose, ``log_w`` and the means within
+    :data:`STEP_TOLERANCES`, ``w`` within 1e-4 relative and 1e-5 absolute,
+    every other float field within :data:`OTHER_TOLERANCE` (relative above
+    1).  ``ok`` when all hold."""
+    fs, fp = dict(_leaves(sharded)), dict(_leaves(plain))
+    differing = [k for k, a in fs.items() if a.dtype.kind in "biu"
+                 and not np.array_equal(a, fp[k])]
+    err = {k: _max_abs(a, fp[k], relative=k not in STEP_TOLERANCES)
+           for k, a in fs.items() if a.dtype.kind == "f" and k != "gm.w"}
+    w_ok = bool(np.allclose(fs["gm.w"], fp["gm.w"], rtol=1e-4, atol=1e-5,
+                            equal_nan=True))
+    rec = {"exact_fields_differing": differing,
+           "max_abs_pose": err.pop("particles.pose"),
+           "max_abs_log_w": err.pop("particles.log_w"),
+           "max_abs_mean": err.pop("gm.mean"),
+           "max_abs_w": _max_abs(fs["gm.w"], fp["gm.w"]), "w_ok": w_ok,
+           "max_rel_other": max(err.values(), default=0.0)}
+    rec["ok"] = (not differing and w_ok
+                 and rec["max_rel_other"] <= OTHER_TOLERANCE
+                 and all(rec[f"max_abs_{k.split('.')[-1]}"] <= t
+                         for k, t in STEP_TOLERANCES.items()))
+    return rec
+
+
+def teacher_forced(filt, din, dt: float, warm: int, steps: int, mesh,
+                   seed: int = 0, state=None) -> dict:
+    """``warm`` free steps of the unsharded 2-D loop (``sim2d_common``'s
+    inputs ``din``) from ``state`` (default: the filter's initial state),
+    then ``steps`` steps each taken twice from the unsharded run's state
+    with the same draws: unsharded, and sharded over ``mesh`` (the state
+    cut to the rank's block, stepped, gathered).  Every rank runs the
+    unsharded steps itself.  The draws come from a generator
+    of ``seed`` alike on every rank (``[P, 3]`` motion noise and the
+    resampling offset each step).  Returns the steps' records
+    (:func:`compare_states`), ``did``, the sharded steps' collectives and
+    bytes (the step's own, not the gather after it), their kernel
+    launches, and the wall times of the sharded and the unsharded
+    steps."""
+    odo, z, z_mask, gt, lock, has_z = din
+    dev = odo.device
+    P = filt.cfg.n_particles
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernels = _kernel_modules()
+
+    def step(state, k, noise, u0, m):
+        state = filt.predict(state, odo[k], dt, noise=noise, mesh=m)
+        if lock[k]:
+            state = dataclasses.replace(state, particles=dataclasses.replace(
+                state.particles,
+                pose=gt[k].expand_as(state.particles.pose).contiguous()))
+        return filt.update(state, z[k], z_mask[k], u0=u0,
+                           has_z=bool(has_z[k]), mesh=m)
+
+    def timed(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    if state is None:
+        state = filt.init_state(torch.zeros(3, device=dev))
+    recs, did = [], []     # did: on the device until the end
+    walls = {"sharded": 0.0, "unsharded": 0.0}
+    launches = dict.fromkeys(kernels, 0)
+    stats = {"collectives": 0, "bytes": 0}
+    for k in range(warm + steps):
+        noise = torch.randn((P, 3), generator=gen, device=dev)
+        u0 = torch.rand((), generator=gen, device=dev)
+        nxt, wall = timed(lambda: step(state, k, noise, u0, None))
+        if k >= warm:
+            walls["unsharded"] += wall
+            before = {n: m.launches for n, m in kernels.items()}
+            block = shard_state(state, mesh)
+            sent = dict(mesh.stats)
+            sh, wall = timed(lambda: step(block, k, mesh.block(noise), u0,
+                                          mesh))
+            walls["sharded"] += wall
+            for n, m in kernels.items():
+                launches[n] += m.launches - before[n]
+            for n in stats:
+                stats[n] += mesh.stats[n] - sent[n]
+            recs.append(compare_states(_host(gather_state(sh, mesh)),
+                                       _host(nxt)))
+            did.append(nxt.n_updates == 0)
+        state = nxt
+    return {"records": recs, "did": torch.stack(did).cpu().numpy(),
+            "launches": launches, "wall_s": walls, "collectives": stats}
+
+
 def _rank_main(rank: int, world: int, coordinator: str, device_type: str,
                paths, workdir: str, result_path: str,
-               backend: str | None, sync_check: bool) -> None:
+               backend: str | None, sync_check: bool,
+               map_shards: int = 0, teacher: int | None = None) -> None:
     """One rank of :func:`run_sharded`: join the group (even alone, so the
-    collectives go through the backend), drive each path sharded, and
-    (rank 0) pickle the results."""
+    collectives go through the backend), drive each path sharded (with
+    ``teacher``, teacher-forced after that many free steps), and (rank 0)
+    pickle the results."""
     if device_type == "cpu":
         torch.set_num_threads(1)
         device = torch.device("cpu")
@@ -248,8 +380,11 @@ def _rank_main(rank: int, world: int, coordinator: str, device_type: str,
         device = torch.device("cuda", rank % torch.cuda.device_count())
     init_process_group(coordinator, world, rank, device, backend)
     try:
-        results = {path: drive_path(path, steps, device, workdir, True,
-                                    sync_check)
+        results = {path: (drive_path(path, steps, device, workdir, True,
+                                     sync_check, map_shards)
+                          if teacher is None else
+                          teacher_path(path, teacher, steps, device, workdir,
+                                       map_shards))
                    for path, steps in paths}
         if rank == 0:
             with open(result_path, "wb") as f:
@@ -258,22 +393,37 @@ def _rank_main(rank: int, world: int, coordinator: str, device_type: str,
         dist.destroy_process_group()
 
 
+def teacher_path(path: str, warm: int, steps: int, device: torch.device,
+                 workdir: str, map_shards: int = 0) -> dict:
+    """:func:`teacher_forced` of a 2-D path (:func:`setup`'s inputs) over
+    the process group's mesh (:func:`sharded_mesh`)."""
+    filt, drive = setup(path, warm + steps, device, workdir)
+    mesh = sharded_mesh(filt, device, map_shards)
+    out = teacher_forced(filt, drive.din, drive.dt, warm, steps, mesh)
+    out.update(p_local=mesh.p_local, backend=dist.get_backend(mesh.group),
+               particles=mesh.p_global)
+    return out
+
+
 def run_sharded(paths, ranks: int, device_type: str, workdir: str,
                 timeout_s: float = 600.0, backend: str | None = None,
-                sync_check: bool = True) -> dict:
+                sync_check: bool = True, map_shards: int = 0,
+                teacher: int | None = None) -> dict:
     """Drive ``paths`` (``(path, steps)`` pairs) sharded over ``ranks``
     spawned processes, rank ``r`` on card ``r`` modulo the cards (or the
     CPU), over ``backend`` (default: the device's, see
     :func:`init_process_group`), the group met through a ``file://``
     rendezvous in ``workdir``.  Every process is killed after
-    ``timeout_s``.  Returns rank 0's :func:`drive_path` results by
-    path."""
+    ``timeout_s``.  ``map_shards`` and ``teacher``: see
+    :func:`_rank_main`.  Returns rank 0's :func:`drive_path` (or
+    :func:`teacher_path`) results by path."""
     ctx = multiprocessing.get_context("spawn")
     coordinator = "file://" + os.path.join(workdir, "rendezvous")
     result_path = os.path.join(workdir, "sharded.pkl")
     procs = [ctx.Process(target=_rank_main, args=(
         r, ranks, coordinator, device_type, list(paths), workdir,
-        result_path, backend, sync_check)) for r in range(ranks)]
+        result_path, backend, sync_check, map_shards, teacher))
+        for r in range(ranks)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout_s
@@ -298,7 +448,8 @@ def _max_abs(a, b, relative: bool = False) -> float:
     infinite."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     same = (a == b) | (np.isnan(a) & np.isnan(b))
-    d = np.where(same, 0.0, np.abs(a - b))
+    with np.errstate(invalid="ignore"):   # inf - inf where same
+        d = np.where(same, 0.0, np.abs(a - b))
     if relative:
         d = d / np.maximum(1.0, np.abs(np.where(same, 0.0, b)))
     return float(np.nan_to_num(d.max(), nan=np.inf)) if d.size else 0.0
@@ -363,39 +514,49 @@ def compare(sharded: dict, plain: dict) -> dict:
 
 def compare_paths(paths, ranks: int, device_type: str,
                   timeout_s: float = 600.0, backend: str | None = None,
-                  sync_check: bool = True) -> list[dict]:
-    """Each path sharded over ``ranks`` processes (:func:`run_sharded`)
-    against its unsharded run in this process (on ``cuda:0`` or the CPU),
-    one record each: ranks, backend, devices, steps, launches and
-    collectives per step, bytes per step, steps/s sharded and unsharded,
-    resamples, ancestors taken from another rank, and :func:`compare`'s
-    checks."""
+                  sync_check: bool = True, map_shards: int = 0,
+                  teacher: int | None = None) -> list[dict]:
+    """Each path sharded over ``ranks`` processes (:func:`run_sharded`;
+    with ``map_shards``, on the particles x map mesh) against its
+    unsharded run in this process (on ``cuda:0`` or the CPU), one record
+    each: ranks, mesh, backend, devices, steps, launches and collectives
+    per step, bytes per step, steps/s sharded and unsharded, resamples,
+    ancestors taken from another rank, and :func:`compare`'s checks.  With
+    ``teacher`` the ranks run :func:`teacher_path` instead, and the record
+    holds its steps' checks (:func:`teacher_record`)."""
     device = torch.device("cuda", 0) if device_type == "cuda" else (
         torch.device("cpu"))
+    if map_shards and any(path not in MAP_PATHS for path, _ in paths):
+        raise ValueError(f"a map mesh runs the paths {MAP_PATHS}")
     if device_type == "cuda":
         from rfs_slam_tpu_torch.ops.kernels import build
 
         # built once here; the ranks load the libraries
         build.load_all(sorted({k for path, _ in paths
                                for k in PATH_KERNELS[path]}))
+    mesh_rec = {"ranks": ranks, "mesh": [ranks // map_shards, map_shards]
+                if map_shards else [ranks]}
     with tempfile.TemporaryDirectory() as workdir:
         prepare(paths, workdir)
         sharded = run_sharded(paths, ranks, device_type, workdir, timeout_s,
-                              backend, sync_check)
+                              backend, sync_check, map_shards, teacher)
         records = []
         for path, steps in paths:
-            plain = drive_path(path, steps, device, workdir)
             sh = sharded[path]
+            head = {"path": path, **mesh_rec, "backend": sh["backend"],
+                    "devices": [str(device) if device_type == "cpu" else
+                                f"cuda:{r % torch.cuda.device_count()}"
+                                for r in range(ranks)], "steps": steps,
+                    "p_local": sh["p_local"]}
+            if teacher is not None:
+                records.append({**head, **teacher_record(sh, path, teacher)})
+                continue
+            plain = drive_path(path, steps, device, workdir)
             p_local = sh["p_local"]
             step = np.arange(sh["parent"].shape[1])
             moved = (sh["parent"] // p_local) != (step // p_local)[None, :]
-            rec = {"path": path, "ranks": ranks, "backend": sh["backend"],
-                   "devices": [str(device) if device_type == "cpu" else
-                               f"cuda:{r % torch.cuda.device_count()}"
-                               for r in range(ranks)],
-                   "steps": steps,
+            rec = {**head,
                    "particles": int(sh["parent"].shape[1]),
-                   "p_local": p_local,
                    "launches_per_step": {
                        k: sh["launches"][k] / steps
                        for k in PATH_KERNELS[path]},
@@ -415,16 +576,47 @@ def compare_paths(paths, ranks: int, device_type: str,
     return records
 
 
+def teacher_record(sh: dict, path: str, warm: int) -> dict:
+    """The summary of a :func:`teacher_path` result: steps held, the ones
+    that failed :func:`compare_states`, the largest differences, the
+    launches and collectives a sharded step, steps/s of the sharded and
+    the unsharded steps."""
+    recs, n = sh["records"], len(sh["records"])
+    keys = ("max_abs_pose", "max_abs_log_w", "max_abs_mean", "max_abs_w",
+            "max_rel_other")
+    return {"teacher_forced_after": warm, "particles": sh["particles"],
+            "failed_steps": [i for i, r in enumerate(recs) if not r["ok"]],
+            "exact_fields_differing": sorted({f for r in recs
+                                              for f in r[
+                                                  "exact_fields_differing"]}),
+            **{k: max(r[k] for r in recs) for k in keys},
+            "launches_per_step": {k: sh["launches"][k] / n
+                                  for k in PATH_KERNELS[path]},
+            "collectives_per_step": sh["collectives"]["collectives"] / n,
+            "collective_bytes_per_step": sh["collectives"]["bytes"] / n,
+            "steps_per_s_sharded": n / sh["wall_s"]["sharded"],
+            "steps_per_s_unsharded": n / sh["wall_s"]["unsharded"],
+            "resamples": int(sh["did"].sum()),
+            "ok": all(r["ok"] for r in recs)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, required=True)
     ap.add_argument("--path", action="append", choices=PATHS,
-                    help="a path to run (repeatable; default: all three)")
+                    help="a path to run (repeatable; default: every one "
+                         "the mesh runs)")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="one GPU per rank (NCCL), or the CPU (gloo)")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before every rank is killed")
+    ap.add_argument("--map-shards", type=int, default=0,
+                    help="split each map over this many ranks (the replay "
+                         "only): a ranks / B x B particles x map mesh")
+    ap.add_argument("--teacher-forced", type=int, default=None,
+                    metavar="WARM", help="step each step from the unsharded "
+                    "state, after WARM free steps")
     args = ap.parse_args(argv)
     if args.device == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -439,9 +631,12 @@ def main(argv=None) -> int:
             text=True).stdout.strip(), flush=True)
     else:
         torch.set_num_threads(1)
-    paths = [(p, args.steps) for p in (args.path or PATHS)]
+    paths = [(p, args.steps) for p in (args.path or (
+        MAP_PATHS if args.map_shards else PATHS))]
     ok = True
-    for rec in compare_paths(paths, args.ranks, args.device, args.timeout):
+    for rec in compare_paths(paths, args.ranks, args.device, args.timeout,
+                             map_shards=args.map_shards,
+                             teacher=args.teacher_forced):
         print(json.dumps(rec), flush=True)
         ok &= rec["ok"]
     return 0 if ok else 1

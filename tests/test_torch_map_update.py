@@ -255,3 +255,69 @@ def test_map_update_phase_matches_jax(midrun, cluster):
     np.testing.assert_array_equal(un_p.numpy(), np.asarray(un_x))
     np.testing.assert_array_equal(fov_p.numpy(), np.asarray(fov_x))
     np.testing.assert_allclose(cz_p.numpy(), np.asarray(cz_x))
+
+
+@pytest.mark.parametrize("case", [None, "ties", "sparse", "crowded",
+                                  "negative weights"])
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_block_form_matches_one_launch(midrun, blocks, case):
+    """The block form's twin (each block's head and tail, the column sums
+    combined in block order, the picks merged) over 1, 2 and 4 blocks of
+    the slot axis against the one-launch twin: the unused flags and the
+    picks equal, every float equal over one block and within the
+    kernel-against-twin tolerances over more (a crowded column's sum adds
+    in another order); launches nothing on CPU tensors."""
+    _, filt, state, z, z_mask = midrun
+    args = planes(state)
+    if case is not None:
+        a, z, z_mask = edge_inputs(state, z, z_mask, case)
+        args, z, z_mask = ([torch.from_numpy(x) for x in a],
+                           torch.from_numpy(z), torch.from_numpy(z_mask))
+    before = mu.launches
+    want = mu.map_update2d_plain(*args, z, z_mask, filt._map_params)
+    got = mu.map_update2d_blocks(*args, z, z_mask, filt._map_params,
+                                 n_blocks=blocks)
+    assert mu.launches == before
+    for name in ("unused", "cand_m"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(want, name).numpy(),
+                                      err_msg=name)
+    for name, rtol, atol in (("pd", 0, 0), ("w_prev", 0, 0), ("K", 0, 0),
+                             ("cov_upd", 0, 0), ("z_exp", 0, 0),
+                             ("col_sum", 5e-5, 1e-7), ("w", 5e-5, 1e-7),
+                             ("cand_w", 1e-5, 1e-8)):
+        g, w = getattr(got, name).numpy(), getattr(want, name).numpy()
+        if blocks == 1:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                       err_msg=name)
+
+
+def test_block_form_picks_merge_by_the_kernel_rule():
+    """``merge_block_picks`` on two blocks of one column (T=3): value
+    descending, the lower slot first among equals across blocks, zeros
+    (a column with fewer positives) at the lowest slot; the column is
+    unused only where every block says so."""
+    cw = torch.tensor([[[0.5, 0.2, 0.0]], [[0.5, 0.3, 0.0]]])
+    cm = torch.tensor([[[7, 2, 0]], [[9, 12, 8]]])
+    un = torch.tensor([[[False]], [[True]]])
+    w, m, u = mu.merge_block_picks(cw, cm, un, 3)
+    assert torch.equal(w, torch.tensor([[0.5, 0.5, 0.3]]))
+    assert m.tolist() == [[7, 9, 12]]
+    assert u.tolist() == [[False]]
+    w, m, _ = mu.merge_block_picks(torch.tensor([[[0.4, 0.0, 0.0]],
+                                                 [[0.0, 0.0, 0.0]]]),
+                                   torch.tensor([[[3, 0, 0]], [[8, 8, 8]]]),
+                                   un, 3)
+    assert torch.equal(w, torch.tensor([[0.4, 0.0, 0.0]]))
+    assert m.tolist() == [[3, 0, 0]]
+
+
+def test_block_launch_plan_fits_every_block():
+    """A block of M / B slots of every map the kernel takes (M <= 1,024,
+    B = 1, 2, 4, 8 where it divides M) meets the launch plan's limits."""
+    for M in range(8, mu.MAX_SLOTS + 1, 8):
+        for B in (1, 2, 4, 8):
+            threads, smem, zb = mu.launch_plan(200, M // B, 40, 8)
+            assert 32 <= threads <= mu.MAX_THREADS and smem <= 232_448

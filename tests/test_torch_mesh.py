@@ -39,8 +39,6 @@ from tests import torch_dist_worker as worker
 from tests.torch_parity import CPU, step_draws, t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "torch_dist_worker.py")
-WORKER_TIMEOUT_S = 240
 WORLDS = (2, 4)
 MULTISTEPS = 60
 P = 8
@@ -60,31 +58,6 @@ def jax_fastslam(jfilt):
                            JFastSLAMConfig(n_particles=P, map_capacity=16,
                                            z_capacity=4, nmz_capacity=8,
                                            candidate_capacity=4))
-
-
-def spawn_workers(d):
-    """Both groups' ranks at once; each process killed after
-    ``WORKER_TIMEOUT_S``.  Returns rank 0's results by world size."""
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [(world, subprocess.Popen(
-        [sys.executable, WORKER, str(rank), str(world), str(d)], env=env,
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for world in WORLDS for rank in range(world)]
-    failed = []
-    try:
-        for world, p in procs:
-            _, err = p.communicate(timeout=WORKER_TIMEOUT_S)
-            if p.returncode:
-                failed.append(f"world {world}: {err[-3000:]}")
-    finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert not failed, failed
-    return {w: torch.load(d / f"out_{w}.pt", weights_only=False)
-            for w in WORLDS}
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +92,7 @@ def runs(tmp_path_factory):
                    dir=vp_dir, map_capacity=64, particles=P),
     }
     torch.save(spec, d / "inputs.pt")
-    sharded = spawn_workers(d)
+    sharded = worker.finish(d, worker.start(d, WORLDS))
     plain = {name: dryrun.drive_logged(f, drive, steps, CPU)
              for name, (f, drive, steps) in worker.drives(spec).items()}
     return jfilt, jstate, spec, sharded, plain
@@ -325,19 +298,6 @@ def test_make_mesh_refuses_an_uneven_split(runs, world):
     """P + 1 particles over 2 or 4 ranks: refused, as JAX refuses a
     NamedSharding of an indivisible axis."""
     assert runs[3][world]["uneven_refused"]
-
-
-def test_mh_fastslam_under_a_mesh_raises():
-    """MH-FastSLAM's cross-particle steps are not sharded yet: an update
-    under a mesh raises instead of running them on a block."""
-    jfilt = graft_filter()
-    fs = convert.filter_from_numpy(jax_fastslam(jfilt), CPU)
-    fs = type(fs)(fs.motion, fs.lmk, fs.meas, fs.gates,
-                  dataclasses.replace(fs.cfg, max_hypotheses=3))
-    state = fs.init_state(torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="MH-FastSLAM"):
-        fs.update(state, torch.zeros((4, 2)), torch.ones(4, dtype=bool),
-                  u0=torch.zeros(()), mesh=mesh.make_mesh(fs.p_cap, CPU))
 
 
 def test_entry_point_needs_gpus_unless_cpu_is_asked():
