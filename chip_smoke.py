@@ -136,6 +136,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ancestors taken from another rank); ``map_update2d`` launches twice an
    update under a map mesh (head and tail), every other kernel as often
    as unsharded;
+16. large maps, the kernels' large forms (M or N above 1,024 slots):
+   (1) each against its twin on random states (M, N = 1,025 and 2,048 at
+   P=16 and 8,192 at P=2; the merges also with every slot alive at
+   N=2,048) and the block form as head and tail on two blocks of 2,048 of
+   M=4,096 against its twin and the one launch, with the kernel-against-
+   twin tolerances of phases 3, 4 and 4b; (2) phase 3's mid-run state and
+   merge input and phase 5d's Victoria Park merge input padded with dead
+   slots to 2,048: on their slots the large forms' outputs equal the
+   small forms' to the bit (every plane, the column sums, the unused
+   flags, the alive sets, every positive pick and its weight), each form
+   timed there beside its twin and bound; (3) ``map_overflow_demo``'s card
+   mode at P=64, M=8,192, Zc=16 for 20 steps under the sync debug mode,
+   both 2-D kernels in their large form once a step, its peak device
+   memory beside the JAX script's analytic figures, and each large form
+   timed at that shape; (4) the ``bl_dump`` replay with maps of 2,048
+   slots (P=200, Zc=40), its first 500 steps: launches, finite outputs,
+   steps/s beside phase 5's and the median pose error (no gate); (5) 100
+   frames of Victoria Park RB-PHD with maps of 2,048 slots, ``merge3d``'s
+   large form once a frame with measurements; (6) the dry run's replay at
+   2,048 slots on a 1 x 2 gloo map mesh sharing the card, 20 steps
+   teacher-forced after 20, against the unsharded run;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -150,8 +171,9 @@ time of 25 calls at its path's shape (see :func:`cuda_ms`); ``bound_ms``
 is the least time the card could take for the same work on this run's
 inputs (see :func:`bound`), and ``floor_ms`` the same timing around a
 one-element ``zero_()``: what the event pair reads for the smallest
-launch.  Prints the kernel table, then the card, then
-the contract line ``{"ok": true, "device": {...}}`` last.  Usage:
+launch.  Prints the kernel table (the four kernels, then the three large
+forms, timed on the padded mid-run states), then the card, then the
+contract line ``{"ok": true, "device": {...}}`` last.  Usage:
 ``python3 chip_smoke.py [--gates]`` from the repository root.
 """
 
@@ -247,6 +269,14 @@ SPATIAL_BOX_M = 30.0       # half-width of the box query around the vehicle
 # step (1); a used one v's step (1) and its row's u (1)
 HUNGARIAN_FLOP_UNUSED = 5
 HUNGARIAN_FLOP_USED = 2
+# phase 16: the large forms (M or N above 1,024 slots)
+LARGE_TWIN_SHAPES = ((16, 1025, 40), (16, 2048, 40), (2, 8192, 16))
+LARGE_BLOCKS = (16, 4096, 2)   # P, M, blocks of the block form's check
+LARGE_PAD = 2048               # the padded mid-run states' slots
+OVERFLOW = (64, 8192, 16, 20)  # P, M, Zc, steps: the overflow demo's shape
+LARGE_REPLAY = (2048, 500)     # map slots, steps of the bl_dump replay
+LARGE_VP = (2048, 100)         # map slots, frames of VP RB-PHD
+LARGE_MESH = (2048, 20, 20)    # map slots, free and teacher-forced steps
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -305,19 +335,24 @@ def bound(n_bytes: int, n_flop: float):
 
 
 def map_update_bound(args, out):
-    """Every input read once and every output written once; the operations
-    per slot (measure, H, S, its inverse, K, the updated covariance: ~60
-    FLOP), per (measurement, slot) cell (innovation, angle wrap, quadratic
-    form, likelihood, gates, weight and its normalisation: ~27 FLOP) and
-    the iterated per-column argmax (2 per slot and pass)."""
-    pose, z = args[0], args[9]
-    P, M = args[1].shape
-    Zc = z.shape[0]
-    T = args[12]
+    """Every input read once and every output written once, over every
+    slot (dead and padded ones too); the operations this input needs: per
+    alive slot (measure, H, S, its inverse, K, the updated covariance: ~60
+    FLOP), per cell of a valid measurement and a table slot, one alive,
+    detectable and in range (innovation, angle wrap, quadratic form,
+    likelihood, gates, weight and its normalisation: ~27 FLOP), and the
+    iterated per-column argmax over the table's slots (2 per slot and
+    pass).  Every other cell is zero by the rules and needs no
+    operation."""
+    alive, z_mask, params, T = args[8], args[10], args[11], args[12]
+    r_max, r_min = params[0], params[1]
+    r = out.z_exp[0]
+    table = alive & (out.pd > 0) & (r >= r_min) & (r <= r_max)
     ins = [a for a in args[:11]]
     outs = [out.pd, out.col_sum, out.w, out.w_prev, out.K, out.z_exp,
             out.cov_upd, out.cand_w, out.cand_m, out.unused]
-    flop = P * M * 60 + P * Zc * M * (27 + 2 * T)
+    flop = (int(alive.sum()) * 60
+            + int(z_mask.sum()) * int(table.sum()) * (27 + 2 * T))
     return bound(nbytes(*ins) + nbytes(*outs), flop)
 
 
@@ -454,6 +489,29 @@ def map_update_cases(torch, args):
         ("M=1024", (pose, *tiled(1024), z, z_mask, params, T))]
 
 
+def compare_map_update(torch, name, k, p):
+    """A map update (``k``) against its twin's (``p``): floats within the
+    kernel's tolerances, the unused flags and the positive picks equal.
+    Returns the maximum absolute error and the positive picks' mask."""
+    torch.cuda.synchronize()
+    case = [close(f"pd ({name})", k.pd, p.pd, 1e-6, 1e-7),
+            close(f"col_sum ({name})", k.col_sum, p.col_sum, 5e-5, 1e-7),
+            close(f"w ({name})", k.w, p.w, 5e-5, 1e-7),
+            close(f"w_prev ({name})", k.w_prev, p.w_prev, 0, 0),
+            close(f"K ({name})", k.K, p.K, 1e-4, 1e-6),
+            close(f"cov_upd ({name})", k.cov_upd, p.cov_upd, 1e-4, 1e-6),
+            close(f"z_exp ({name})", k.z_exp, p.z_exp, 1e-5, 1e-6),
+            close(f"cand_w ({name})", k.cand_w, p.cand_w, 1e-5, 1e-8)]
+    np.testing.assert_array_equal(k.unused.cpu().numpy(),
+                                  p.unused.cpu().numpy(),
+                                  err_msg=f"unused ({name})")
+    nz = (p.cand_w > 0).cpu().numpy()
+    np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
+                                  p.cand_m.cpu().numpy()[nz],
+                                  err_msg=f"cand_m ({name})")
+    return max(case), nz
+
+
 def check_map_update(torch, mu, filt, state, z, z_mask):
     gm, cfg = state.gm, filt.cfg
     if not bool(gm.alive.any()):
@@ -466,29 +524,12 @@ def check_map_update(torch, mu, filt, state, z, z_mask):
             params, cfg.new_per_z)
     errs = []
     for name, a in map_update_cases(torch, args):
-        k = mu.fused_map_update2d(*a)
-        p = mu.map_update2d_plain(*a)
-        torch.cuda.synchronize()
-        case = [close(f"pd ({name})", k.pd, p.pd, 1e-6, 1e-7),
-                close(f"col_sum ({name})", k.col_sum, p.col_sum, 5e-5, 1e-7),
-                close(f"w ({name})", k.w, p.w, 5e-5, 1e-7),
-                close(f"w_prev ({name})", k.w_prev, p.w_prev, 0, 0),
-                close(f"K ({name})", k.K, p.K, 1e-4, 1e-6),
-                close(f"cov_upd ({name})", k.cov_upd, p.cov_upd, 1e-4,
-                      1e-6),
-                close(f"z_exp ({name})", k.z_exp, p.z_exp, 1e-5, 1e-6),
-                close(f"cand_w ({name})", k.cand_w, p.cand_w, 1e-5, 1e-8)]
-        np.testing.assert_array_equal(k.unused.cpu().numpy(),
-                                      p.unused.cpu().numpy(),
-                                      err_msg=f"unused ({name})")
-        nz = (p.cand_w > 0).cpu().numpy()
-        np.testing.assert_array_equal(k.cand_m.cpu().numpy()[nz],
-                                      p.cand_m.cpu().numpy()[nz],
-                                      err_msg=f"cand_m ({name})")
-        errs += case
+        err, nz = compare_map_update(torch, name, mu.fused_map_update2d(*a),
+                                     mu.map_update2d_plain(*a))
+        errs.append(err)
         print(f"map_update2d: kernel == twin on {name} (M={a[1].shape[1]}, "
               f"Zc={a[9].shape[0]}, {int(a[8].sum())} alive slots, "
-              f"{int(nz.sum())} candidates; max abs error {max(case):.3g})",
+              f"{int(nz.sum())} candidates; max abs error {err:.3g})",
               flush=True)
     return (max(errs), *kernel_vs_twin_ms(
         torch, "map_update2d", lambda: mu.fused_map_update2d(*args),
@@ -555,13 +596,15 @@ def check_map_update_block(torch, mu, filt, state, z, z_mask):
     return max(errs), ms, plain_ms
 
 
-def random_mixtures(torch, GMState, rng, P, N, dev):
-    """Random D=2 mixtures, 20-120 alive slots per particle, alive first."""
+def random_mixtures(torch, GMState, rng, P, N, dev, n_alive=(20, 120)):
+    """Random D=2 mixtures, ``n_alive`` alive slots per particle (20-120),
+    alive first."""
     mean = rng.uniform(-3, 3, size=(P, N, 2)).astype(np.float32)
     A = rng.normal(size=(P, N, 2, 2)).astype(np.float32) * 0.2
     cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(2, dtype=np.float32)
     w = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
-    alive = np.arange(N)[None, :] < rng.integers(20, 121, size=(P, 1))
+    alive = np.arange(N)[None, :] < rng.integers(n_alive[0], n_alive[1] + 1,
+                                                 size=(P, 1))
     t = lambda a: torch.as_tensor(a, device=dev)
     return GMState(
         mean=t(np.moveaxis(mean, -1, 0).copy()),
@@ -606,30 +649,36 @@ def check_merge(torch, mg, gm_ops, GMState, filt, state, z, z_mask, dev):
                                                 dev), 1.5, 1.5))
     cases += [(name, gm, 1.5, 1.5)
               for name, gm in edge_mixtures(torch, GMState, rng, dev)]
-    errs = []
-    for name, gm, thr, infl in cases:
-        k = mg.merge2d(gm, thr, infl)
-        p = mg.merge2d_plain(gm, thr, infl)
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(k.alive.cpu().numpy(),
-                                      p.alive.cpu().numpy(),
-                                      err_msg=f"merge2d alive ({name})")
-        a = p.alive.cpu().numpy()
-        case = [close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
-                close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
-                close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-5, a),
-                close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a)]
-        errs += case
-        print(f"merge2d: kernel == twin on {name} mixtures "
-              f"(N={gm.capacity}, {int(gm.count().sum())} -> "
-              f"{int(p.count().sum())} alive; max abs error "
-              f"{max(case):.3g})", flush=True)
+    errs = [compare_merge2d(torch, mg, name, gm, thr, infl)[1]
+            for name, gm, thr, infl in cases]
     gm, thr, infl = cases[0][1:]
     return (max(errs), *kernel_vs_twin_ms(
         torch, "merge2d", lambda: mg.merge2d(gm, thr, infl),
         lambda: mg.merge2d_plain(gm, thr, infl)),
         *merge_bound(gm_ops, gm, mg.merge2d(gm, thr, infl), thr, infl,
                      inv_flop=7, merge_flop=30))
+
+
+def compare_merge2d(torch, mg, name, gm, thr, infl):
+    """merge2d against its twin on one input: alive exact, floats within
+    tests/test_pallas_merge.py's tolerances; returns the twin's output and
+    the maximum absolute error."""
+    k = mg.merge2d(gm, thr, infl)
+    p = mg.merge2d_plain(gm, thr, infl)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.alive.cpu().numpy(),
+                                  p.alive.cpu().numpy(),
+                                  err_msg=f"merge2d alive ({name})")
+    a = p.alive.cpu().numpy()
+    err = max(close(f"w ({name})", k.w, p.w, 1e-5, 0, a),
+              close(f"mean ({name})", k.mean, p.mean, 1e-4, 1e-5, a),
+              close(f"cov ({name})", k.cov, p.cov, 1e-3, 1e-5, a),
+              close(f"w_prev ({name})", k.w_prev, p.w_prev, 1e-5, 0, a))
+    print(f"merge2d: kernel == twin on {name} mixtures "
+          f"(N={gm.capacity}, {int(gm.count().sum())} -> "
+          f"{int(p.count().sum())} alive; max abs error {err:.3g})",
+          flush=True)
+    return p, err
 
 
 def random_mixtures3(torch, GMState, rng, P, N, dev, n_alive=(40, 400)):
@@ -1585,6 +1634,331 @@ def batchsim_cells(torch, batchsim, kernels, dev):
         if not np.isfinite([mean_err, final_err, map_err]).all():
             raise AssertionError(f"batchsim {kind}: non-finite errors")
 
+def large_map_inputs(torch, rng, params, P, M, Zc, dev):
+    """Random map-update inputs at ``P`` x ``M``: poses near the origin,
+    the slots spread over 0.2-3 m around it (the sensor sees 0.5-2.5 m),
+    half to all of them alive, and ``Zc`` measurements of particle 0's
+    first landmarks with noise (the last two masked), so that columns
+    hold many positive cells and both argmax paths run."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    r = rng.uniform(0.2, 3.0, (P, M))
+    a = rng.uniform(-np.pi, np.pi, (P, M))
+    w = rng.uniform(0.05, 1.0, (P, M))
+    k = np.arange(Zc)
+    z = np.stack([r[0, k] + rng.normal(0, 0.02, Zc),
+                  a[0, k] + rng.normal(0, 0.01, Zc)], axis=-1)
+    alive = np.arange(M)[None, :] < rng.integers(M // 2, M + 1, (P, 1))
+    return (t(rng.normal(0, 0.05, (P, 3))), t(r * np.cos(a)),
+            t(r * np.sin(a)), t(rng.uniform(0.005, 0.02, (P, M))),
+            t(rng.uniform(-0.002, 0.002, (P, M))),
+            t(rng.uniform(0.005, 0.02, (P, M))), t(w), t(w * 0.5),
+            torch.as_tensor(alive, device=dev), t(z),
+            torch.as_tensor(k < Zc - 2, device=dev), params, 8)
+
+
+def pad_slots(torch, x, n):
+    """``x`` with its last (slot) axis padded to ``n`` with zeros (dead
+    slots where ``x`` is the alive mask)."""
+    out = x.new_zeros(x.shape[:-1] + (n,))
+    out[..., :x.shape[-1]] = x
+    return out
+
+
+def bits(torch, x):
+    """``x`` as integers: float planes compared bit for bit."""
+    x = x.contiguous()
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def assert_bit_equal(torch, name, small, large, fields, n):
+    """Each of ``fields`` of ``small`` equal to the bit to the same field of
+    ``large``, on its first ``n`` slots where the field has ``large``'s
+    slot axis (the last)."""
+    for f in fields:
+        a, b = getattr(small, f), getattr(large, f)
+        if b.shape[-1] != a.shape[-1]:
+            b = b[..., :n]
+        if not torch.equal(bits(torch, a), bits(torch, b)):
+            raise AssertionError(f"{name}: the large form's {f} differs from "
+                                 f"the small form's")
+
+
+def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
+    """Phase 16.1: each large form against its twin on random states
+    (M or N = 1,025 and 2,048 at P=16, 8,192 at P=2; the merges also with
+    every slot alive at N=2,048, so that several passes run) and the block
+    form as head and tail on 2 blocks of 2,048 of M=4,096, against its
+    twin and the one launch.  Returns the largest error of each kernel."""
+    rng = np.random.default_rng(16)
+    errs = {"map_update2d": [], "merge2d": [], "merge3d": []}
+    params = filt._map_params
+    for P, M, Zc in LARGE_TWIN_SHAPES:
+        a = large_map_inputs(torch, rng, params, P, M, Zc, dev)
+        err, nz = compare_map_update(torch, f"large M={M}",
+                                     mu.fused_map_update2d(*a),
+                                     mu.map_update2d_plain(*a))
+        errs["map_update2d"].append(err)
+        print(f"map_update2d large form == twin at P={P}, M={M}, Zc={Zc} "
+              f"({int(a[8].sum())} alive slots, {int(nz.sum())} picks; max "
+              f"abs error {err:.3g}; {mu.launch_plan(P, M, Zc, 8)})",
+              flush=True)
+        n_alive = (M // 2, M)
+        errs["merge2d"].append(compare_merge2d(
+            torch, mg, f"large N={M}", random_mixtures(
+                torch, GMState, rng, P, M, dev, n_alive), 1.5, 1.5)[1])
+        errs["merge3d"].append(compare_merge3d(
+            torch, m3, f"large N={M}", random_mixtures3(
+                torch, GMState, rng, P, M, dev, n_alive), 1.5, 1.5)[1])
+    N = LARGE_PAD
+    errs["merge2d"].append(compare_merge2d(
+        torch, mg, f"all alive N={N}", random_mixtures(
+            torch, GMState, rng, 16, N, dev, (N, N)), 1.5, 1.5)[1])
+    errs["merge3d"].append(compare_merge3d(
+        torch, m3, f"all alive N={N}", random_mixtures3(
+            torch, GMState, rng, 16, N, dev, (N, N)), 1.5, 1.5)[1])
+    P, M, B = LARGE_BLOCKS
+    a = large_map_inputs(torch, rng, params, P, M, 40, dev)
+    k = mu.map_update2d_blocks(*a, n_blocks=B)
+    err, _ = compare_map_update(torch, "large block form", k,
+                                mu.map_update2d_blocks(*a, n_blocks=B,
+                                                       plain=True))
+    one = mu.fused_map_update2d(*a)
+    torch.cuda.synchronize()
+    nz = one.cand_w > 0
+    if not (torch.equal(k.unused, one.unused)
+            and torch.equal(k.cand_m[nz], one.cand_m[nz])):
+        raise AssertionError("map_update2d: the large block form's picks "
+                             "differ from the one launch's")
+    errs["map_update2d"].append(err)
+    print(f"map_update2d block form == twin and one launch on {B} blocks of "
+          f"{M // B} of M={M} (max abs error {err:.3g})", flush=True)
+    return {k: max(v) for k, v in errs.items()}
+
+
+def check_padding(torch, mu, mg, m3, gm_ops, filt, state, z, z_mask,
+                  vp_filt, vp_gm):
+    """Phase 16.2: the mid-run state of phase 3 (M=128) and its merge
+    input, and Victoria Park's merge input of phase 5d (N=512), padded
+    with dead slots to LARGE_PAD: the large forms' outputs on the first
+    slots equal the small forms' to the bit (every plane, the column sums,
+    the unused flags, the alive sets, every positive pick and its
+    weight); the large forms against their twins on the padded states;
+    each form's device time with its twin's and the bound.  Returns
+    ``{kernel: (max abs error, ms, plain_ms, bound_ms, bound_by)}``."""
+    gm, cfg, n = state.gm, filt.cfg, LARGE_PAD
+    args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
+            gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
+            filt._map_params, cfg.new_per_z)
+    padded = (args[0], *[pad_slots(torch, x, n) for x in args[1:9]],
+              *args[9:])
+    small, large = mu.fused_map_update2d(*args), mu.fused_map_update2d(
+        *padded)
+    torch.cuda.synchronize()
+    M = gm.w.shape[1]
+    assert_bit_equal(torch, "map_update2d padded", small, large,
+                     ("w", "w_prev", "pd", "K", "cov_upd", "z_exp", "col_sum",
+                      "unused"), M)
+    pos = small.cand_w > 0
+    if not (torch.equal(bits(torch, small.cand_w)[pos],
+                        bits(torch, large.cand_w)[pos])
+            and torch.equal(small.cand_m[pos], large.cand_m[pos])):
+        raise AssertionError("map_update2d padded: a positive pick differs")
+    rows = {}
+    err, _ = compare_map_update(torch, "padded mid-run", large,
+                                mu.map_update2d_plain(*padded))
+    rows["map_update2d"] = (err, *kernel_vs_twin_ms(
+        torch, f"map_update2d large form (mid-run padded to {n})",
+        lambda: mu.fused_map_update2d(*padded),
+        lambda: mu.map_update2d_plain(*padded)),
+        *map_update_bound(padded, large))
+    small_ms = cuda_ms(torch, lambda: mu.fused_map_update2d(*args))
+    print(json.dumps({"padded": "map_update2d", "slots": [M, n],
+                      "positive_picks": int(pos.sum()), "bit_equal": True,
+                      "small_ms": small_ms, "large_ms": rows[
+                          "map_update2d"][1],
+                      "large_bound_ms": rows["map_update2d"][3]}),
+          flush=True)
+
+    gm_full = filt._map_update(state, z, z_mask)[0]
+    merges = (("merge2d", mg.merge2d, mg.merge2d_plain,
+               gm_ops.compact(gm_full, gm_full.capacity),
+               cfg.merge_threshold, cfg.merge_inflation, 7, 30),
+              ("merge3d", m3.merge3d, m3.merge3d_plain, vp_gm,
+               vp_filt.cfg.merge_threshold, vp_filt.cfg.merge_inflation, 25,
+               60))
+    for name, kern, twin, g, thr, infl, inv_flop, merge_flop in merges:
+        gp = type(g)(*[pad_slots(torch, x, n) for x in (
+            g.mean, g.cov, g.w, g.w_prev, g.alive)])
+        ks, kl = kern(g, thr, infl), kern(gp, thr, infl)
+        torch.cuda.synchronize()
+        assert_bit_equal(torch, f"{name} padded", ks, kl,
+                         ("mean", "cov", "w", "w_prev", "alive"), g.capacity)
+        if bool(kl.alive[:, g.capacity:].any()):
+            raise AssertionError(f"{name}: a padded slot came alive")
+        compare = compare_merge2d if name == "merge2d" else compare_merge3d
+        _, err = compare(torch, mg if name == "merge2d" else m3,
+                         f"padded to {n}", gp, thr, infl)
+        rows[name] = (err, *kernel_vs_twin_ms(
+            torch, f"{name} large form (padded to {n})",
+            lambda: kern(gp, thr, infl), lambda: twin(gp, thr, infl)),
+            *merge_bound(gm_ops, gp, kl, thr, infl, inv_flop=inv_flop,
+                         merge_flop=merge_flop))
+        print(json.dumps({"padded": name, "slots": [g.capacity, n],
+                          "alive": int(g.alive.sum()), "bit_equal": True,
+                          "small_ms": cuda_ms(torch, lambda: kern(g, thr,
+                                                                  infl)),
+                          "large_ms": rows[name][1],
+                          "large_bound_ms": rows[name][3]}), flush=True)
+    return rows
+
+
+def overflow_phase(torch, mu, mg, gm_ops, card, dev):
+    """Phase 16.3: ``map_overflow_demo``'s card mode at the JAX script's
+    shape (P=64, M=8,192, Zc=16) for OVERFLOW[3] steps under the sync
+    debug mode: both 2-D kernels launch in their large form once a step,
+    the state stays finite; the peak device memory beside the JAX
+    script's analytic figures.  Then each large form's device time on the
+    example state at that shape.  Returns ``{kernel: (launches, ms)}``,
+    the launches as the run's large-form counters read them."""
+    from rfs_slam_tpu_torch.apps import example_step as ex
+    from rfs_slam_tpu_torch.parallel import map_overflow_demo as demo
+
+    P, M, Zc, steps = OVERFLOW
+    rec = {"overflow": "map_overflow_demo card", "card": card,
+           "analytic": demo.analytic(P, M, Zc),
+           "forms": demo.forms(P, M, Zc),
+           **demo.run_card(P, M, Zc, steps, dev)}
+    rec["median_ms_per_step"] = statistics.median(rec["ms_per_step"])
+    print(json.dumps(rec), flush=True)
+    if not rec["finite"]:
+        raise AssertionError("overflow: the state is not finite")
+    for name in ("map_update2d", "merge2d"):
+        if not (rec["launches"][name] == rec["large_launches"][name]
+                == steps):
+            raise AssertionError(f"overflow: {name} launched "
+                                 f"{rec['launches'][name]} times, "
+                                 f"{rec['large_launches'][name]} in its "
+                                 f"large form, in {steps} steps")
+    filt = ex.build(P, M, Zc, dev)
+    state, odo, z, z_mask = ex.example_inputs(filt, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = filt.predict(state, odo, ex.DT, gen=gen)
+    gm, cfg = state.gm, filt.cfg
+    args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
+            gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
+            filt._map_params, min(cfg.new_per_z, M))
+    gm_full = filt._map_update(state, z, z_mask)[0]
+    merge_in = gm_ops.compact(gm_full, gm_full.capacity)
+    thr, infl = cfg.merge_threshold, cfg.merge_inflation
+    ms = {"map_update2d": cuda_ms(torch, lambda: mu.fused_map_update2d(
+              *args), n=5),
+          "merge2d": cuda_ms(torch, lambda: mg.merge2d(merge_in, thr, infl),
+                             n=5)}
+    print(json.dumps({"overflow_kernel_ms": ms, "card": card,
+                      "merge_input_alive": int(merge_in.alive.sum()),
+                      "map_update_bound_ms": map_update_bound(
+                          args, mu.fused_map_update2d(*args))[0]}),
+          flush=True)
+    return {k: (rec["large_launches"][k], v) for k, v in ms.items()}
+
+
+def large_paths_phase(torch, app, loop, vp_app, mu, mg, m3, dev, sim_cfg,
+                      replay_steps_per_s, vp_icov, vp_cfg, stream):
+    """Phases 16.4-16.5: the bl_dump replay with maps of LARGE_REPLAY[0]
+    slots (P=200, Zc=40) over its first LARGE_REPLAY[1] steps, each 2-D
+    kernel launching once an update with measurements, in its large form,
+    finite outputs, steps/s beside phase 5's and the median pose error (no
+    gate on either); Victoria Park RB-PHD with maps of LARGE_VP[0] slots
+    over its first LARGE_VP[1] frames, merge3d launching once a frame with
+    measurements in its large form, finite outputs.  Returns the large
+    forms' launches."""
+    from rfs_slam_tpu_torch.filters.rbphd import RBPHDFilter
+    from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig
+
+    m_cap, steps = LARGE_REPLAY
+    filt = app.build_filter(sim_cfg, dev, map_capacity=m_cap)
+    gt, inputs = app.load_bl_dump(BL_DUMP, steps + 1)
+    n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
+    for m in (mu, mg, m3):
+        m.launches = m.large_launches = 0
+    final, best, wall = timed_run(torch, loop, filt, inputs, 0, sim_cfg.dt,
+                                  dev)
+    launches = {"map_update2d": mu.large_launches,
+                "merge2d": mg.large_launches}
+    alive = final.gm.alive
+    rec = {"large_replay": "native/bl_dump", "map_capacity": m_cap,
+           "steps": len(best), "particles": filt.cfg.n_particles,
+           "wall_s": wall, "steps_per_s": len(best) / wall,
+           "phase5_steps_per_s": replay_steps_per_s,
+           "median_pose_err_m": loop.median_pose_error(best, gt[1:]),
+           "launches": {"map_update2d": mu.launches,
+                        "merge2d": mg.launches},
+           "large_launches": launches, "updates_with_measurements":
+               n_updates,
+           "final_alive_max": int(alive.sum(dim=1).max())}
+    print(json.dumps(rec), flush=True)
+    for name, n in launches.items():
+        if not n == rec["launches"][name] == n_updates:
+            raise AssertionError(f"large replay: {name} launched {n} times "
+                                 f"in its large form, {n_updates} updates "
+                                 f"had measurements")
+    if not (np.isfinite(best).all()
+            and bool(torch.isfinite(final.particles.log_w).all())
+            and bool(torch.isfinite(final.gm.w[alive]).all())
+            and bool(torch.isfinite(final.gm.mean[:, alive]).all())):
+        raise AssertionError("large replay produced non-finite outputs")
+
+    m_cap, n_frames = LARGE_VP
+    vfilt, _, _ = vp_app.build(XmlConfig(vp_cfg), device=dev)
+    vfilt = RBPHDFilter(vfilt.motion, vfilt.lmk, vfilt.meas, vfilt.gates,
+                        dataclasses.replace(vfilt.cfg, map_capacity=m_cap))
+    frames = vp_app.head(stream, n_frames)
+    n_meas = int(frames.z_mask.any(axis=1).sum())
+    m3.launches = m3.large_launches = 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    vstate, outs = vp_app.run(vfilt, vp_icov, frames, gen)
+    torch.cuda.synchronize()
+    vwall = time.perf_counter() - t0
+    launches["merge3d"] = m3.large_launches
+    print(json.dumps({"large_vp": "victoria_park synthetic stream seed 0",
+                      "map_capacity": m_cap, "frames": n_frames,
+                      "particles": vfilt.cfg.n_particles,
+                      "frames_per_s": n_frames / vwall,
+                      "merge3d_launches": m3.launches,
+                      "merge3d_large_launches": m3.large_launches,
+                      "frames_with_measurements": n_meas,
+                      "rmse_m": vp_app.trajectory_rmse(frames, outs)[0]}),
+          flush=True)
+    if not m3.large_launches == m3.launches == n_meas:
+        raise AssertionError(f"large VP: merge3d launched "
+                             f"{m3.large_launches} times in its large form, "
+                             f"{n_meas} frames had measurements")
+    if not vp_finite(torch, vstate, outs):
+        raise AssertionError("large VP produced non-finite outputs")
+    return launches
+
+
+def large_mesh_phase(torch):
+    """Phase 16.6: the dry run's replay with maps of LARGE_MESH[0] slots
+    on a 1 x 2 gloo mesh sharing the card, LARGE_MESH[2] steps
+    teacher-forced after LARGE_MESH[1] free ones, against the unsharded
+    run: every step's integer and bool fields equal, floats within phase
+    15's tolerances (``dryrun.compare_states``)."""
+    from rfs_slam_tpu_torch.parallel import dryrun
+
+    m_cap, warm, steps = LARGE_MESH
+    for rec in dryrun.compare_paths(
+            [(MAP_PATH[0], steps)], 2, "cuda", timeout_s=SHARDED_TIMEOUT_S,
+            backend="gloo", sync_check=False, map_shards=2, teacher=warm,
+            map_capacity=m_cap):
+        print(json.dumps({"phase16": rec.pop("path"), **rec}), flush=True)
+        if not rec["ok"]:
+            raise AssertionError(f"phase 16: the 1 x 2 map mesh at "
+                                 f"{m_cap} slots differs from the "
+                                 f"unsharded run: {rec}")
+        check_launches(rec, True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1683,6 +2057,7 @@ def main(argv=None) -> int:
         raise AssertionError("replay produced non-finite outputs")
     err = loop.median_pose_error(best, gt[1:])
     steps = len(best)
+    replay_steps_per_s = steps / wall
     print(json.dumps({
         "replay": "native/bl_dump", "steps": steps,
         "particles": filt.cfg.n_particles, "wall_s": wall,
@@ -1735,10 +2110,9 @@ def main(argv=None) -> int:
                              f"{VP_DIVERGENCE_BOUND_M} m")
 
     # ---- 5d. merge3d timed on the merge input of frame VP_FRAMES
-    m3_row = time_merge3d(
-        torch, m3, gm_ops, vp_filt,
-        vp_merge_input(torch, gm_ops, vp_filt, vp_state, stream, VP_FRAMES,
-                       dev), m3_err)
+    vp_gm = vp_merge_input(torch, gm_ops, vp_filt, vp_state, stream,
+                           VP_FRAMES, dev)
+    m3_row = time_merge3d(torch, m3, gm_ops, vp_filt, vp_gm, m3_err)
 
     # ---- 5e. the scan-dependent Pd on a stream with lidar scans
     scan_frames = vp_io.load(vp_scans, z_capacity=vp_app.Z_CAPACITY,
@@ -1794,6 +2168,19 @@ def main(argv=None) -> int:
     # ---- 15. the one-hypothesis paths sharded, once the card is free
     sharded_phase(torch)
 
+    # ---- 16. large maps: the kernels' large forms (M, N > 1,024)
+    t16 = time.perf_counter()
+    large_errs = check_large_forms(torch, mu, mg, m3, GMState, filt, dev)
+    large_rows = check_padding(torch, mu, mg, m3, gm_ops, filt, state, z,
+                               z_mask, vp_filt, vp_gm)
+    overflow = overflow_phase(torch, mu, mg, gm_ops, card, dev)
+    large_launches = large_paths_phase(
+        torch, app, loop, vp_app, mu, mg, m3, dev, sim_cfg,
+        replay_steps_per_s,
+        vp_icov, vp_cfg, stream)
+    large_mesh_phase(torch)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
     # the accuracy of phases 7-8 (checked once every phase has printed):
     # every seed's run below dead reckoning, their median within the bound
     for rec in (fs_rec, mh_rec):
@@ -1845,6 +2232,28 @@ def main(argv=None) -> int:
     # the block form: one rank's two launches on its 64 slots (phase 3b)
     kernels[0].update(block_max_abs_err=mu_block[0], block_ms=mu_block[1],
                       block_plain_ms=mu_block[2])
+    # the large forms (phase 16): timed on the padded mid-run states and at
+    # the overflow shape; launches in the large-map paths (16.4-16.5), and
+    # apart from them those of the overflow run (16.3)
+    plans = {"map_update2d": mu.launch_plan(*OVERFLOW[:3], 8),
+             "merge2d": mg.launch_plan(*OVERFLOW[:2]),
+             "merge3d": m3.launch_plan(100, LARGE_VP[0])}
+    for name, jax_fn in (("map_update2d", "ops/pallas/map_update2d.py:309"),
+                         ("merge2d", "ops/pallas/merge2d.py:194"),
+                         ("merge3d", "ops/pallas/merge3d.py:200")):
+        err, ms, plain_ms, bound_ms, bound_by = large_rows[name]
+        kernels.append({
+            "name": f"{name} (large form)", "route": "cuda",
+            "source": f"rfs_slam_tpu_torch/csrc/{name}.cu",
+            "replaces": f"rfs_slam_tpu/{jax_fn}",
+            "launches": large_launches[name],
+            "launches_overflow": overflow.get(name, (None,))[0],
+            "max_abs_err": max(err, large_errs[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "floor_ms": floor_ms, "library_ms": None,
+            "shape": f"padded to {LARGE_PAD} slots",
+            "overflow_ms": overflow.get(name, (0, None))[1],
+            "workspace_bytes": plans[name].workspace})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

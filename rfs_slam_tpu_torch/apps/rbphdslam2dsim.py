@@ -45,12 +45,14 @@ MAP_CAPACITY = 128
 
 
 def build_filter(sim_cfg: sim2d.Sim2DConfig, device: torch.device,
-                 n_particles: int = N_PARTICLES) -> RBPHDFilter:
-    """The filter of bench.py:52-81 on ``device``."""
+                 n_particles: int = N_PARTICLES,
+                 map_capacity: int | None = None) -> RBPHDFilter:
+    """The filter of bench.py:52-81 on ``device`` (with ``map_capacity``,
+    maps of that many slots in place of its 128)."""
     motion, lmk, meas = sim_models(sim_cfg, device, 1.5, 10.0)
     gates = InnovationGates.range_bearing(range_t=1.0, bearing_t=0.2)
     cfg = RBPHDConfig(
-        n_particles=n_particles, map_capacity=MAP_CAPACITY,
+        n_particles=n_particles, map_capacity=map_capacity or MAP_CAPACITY,
         z_capacity=Z_CAPACITY, new_capacity=48, new_per_z=8,
         birth_capacity=16, eval_capacity=15, z_dp_max=10,
         birth_gaussian_weight=0.01, new_gaussian_md_threshold=3.0,

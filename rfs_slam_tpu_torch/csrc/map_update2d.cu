@@ -45,7 +45,7 @@
 //   4. each slot sums its table row in column order (the first port's
 //      order), then the missed-detection weights.
 // The table is held in chunks of ZB columns (all Zc at bench shape), so
-// shared memory stays bounded for any M <= 1024.  The arithmetic is the
+// the table's shared memory stays bounded at any M.  The arithmetic is the
 // first port's expression for expression (pd * w * lik is (pd * w) * lik,
 // the column sums in its order), so nvcc contracts it as it did and every
 // output rounds as the first port's; a zero divided by the column sum is
@@ -63,6 +63,17 @@
 // the given column sums (clutter included): normalisation, the block's
 // unused flags, its top T with the slot numbers offset by m_off, and the
 // missed-detection weights.  kWhole is the one-launch form, unchanged.
+//
+// Large form (M > 1024, every mode; kLarge): in the small form a lane's
+// table bits are one 32-bit word (bit r: slot lane + 32 r), and so are its
+// picks' bits in column(), which bounds M at 32 x 32.  The large form reads
+// a slot's table bit from the shared words s_tabw (bit lane of word r: the
+// same bit) and keeps the picks' bits in lane-private shared words; the
+// per-slot stash stays in shared memory while it fits (M up to ~3,300 at
+// Zc=40) and moves to a global workspace past that (launch_plan).  Every
+// statement of arithmetic and every loop order is the small form's, so the
+// column sums add the table's slots in the same order and a map padded
+// with dead slots gives the small form's bits on its slots.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -140,6 +151,16 @@ __device__ __forceinline__ int nth_set(const unsigned* words, int q) {
   return pos;
 }
 
+// Whether slot lane + 32 r is in the table: bit r of the lane's tabmask
+// (small form), or bit lane of the table's bit word r (large form).
+template <bool kLarge>
+__device__ __forceinline__ bool in_table(unsigned tabmask,
+                                         const unsigned* tabw, int lane,
+                                         int r) {
+  if constexpr (kLarge) return (tabw[r] >> lane) & 1u;
+  return (tabmask >> r) & 1u;
+}
+
 // One argmax round over the warp: the largest key and the lowest index
 // that holds it, from each lane's best key and its lowest index.
 __device__ __forceinline__ void warp_first_argmax(unsigned best, int bi,
@@ -152,13 +173,16 @@ __device__ __forceinline__ void warp_first_argmax(unsigned best, int bi,
 // Phase 3 for one column (a warp) over all M slots, where
 // column_compact() does not apply: sum, normalise in place, unused flag,
 // T rounds of first-argmax over the column reread from shared memory.
-// Bit r of tabmask: slot lane + 32 r is in the table; the others' entries
-// are zero and were not written this chunk.
+// Bit r of tabmask: slot lane + 32 r is in the table (in_table); the
+// others' entries are zero and were not written this chunk.
 // kTail: the column sum is given (cs_given, clutter included) and the
 // picked slot numbers are offset by m_off.
-template <int kMode>
-__device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
-                       int k, bool zm, float clutter, int lane, size_t p,
+// kLarge: the picks' bits are the lane's words of taken (bit r % 32 of
+// word (r / 32) * 32 + lane), ceil(M / 1024) * 32 words for the warp.
+template <int kMode, bool kLarge>
+__device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
+                       unsigned* taken_w, int M, int T, int Zc, int k,
+                       bool zm, float clutter, int lane, size_t p,
                        float* colsum_out, bool* unused_out, float* cand_w,
                        int64_t* cand_m, float cs_given, int m_off) {
   float c;
@@ -167,14 +191,14 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
   } else {
     float s = 0.f;
     for (int j = lane, r = 0; j < M; j += 32, ++r)
-      if ((tabmask >> r) & 1u) s += col[j];
+      if (in_table<kLarge>(tabmask, tabw, lane, r)) s += col[j];
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(kFull, s, off);
     c = clutter + s;
   }
   bool any = false;
   for (int j = lane, r = 0; j < M; j += 32, ++r) {
-    const float v = (tabmask >> r) & 1u ? col[j] : 0.f;
+    const float v = in_table<kLarge>(tabmask, tabw, lane, r) ? col[j] : 0.f;
     const float x = zm ? div_nz(v, c) : 0.f;
     any |= x > 0.f;
     col[j] = x;
@@ -186,11 +210,18 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
   }
 
   unsigned taken = 0;  // bit r set once entry lane + 32 r is picked
+  if constexpr (kLarge)
+    for (int q = lane; q < 32 * ((M + 1023) >> 10); q += 32) taken_w[q] = 0;
   for (int t = 0; t < T; ++t) {
     unsigned best = kPadKey;
     int bi = M;
     for (int j = lane, r = 0; j < M; j += 32, ++r) {
-      const unsigned kj = (taken >> r) & 1u ? kZeroKey : order_key(col[j]);
+      bool picked;
+      if constexpr (kLarge)
+        picked = (taken_w[(r >> 5) * 32 + lane] >> (r & 31)) & 1u;
+      else
+        picked = (taken >> r) & 1u;
+      const unsigned kj = picked ? kZeroKey : order_key(col[j]);
       if (kj > best) { best = kj; bi = j; }
     }
     unsigned g, idx;
@@ -200,8 +231,13 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
       cand_w[o] = key_value(g);
       cand_m[o] = min(static_cast<int>(idx), M - 1) + m_off;
     }
-    if (idx < static_cast<unsigned>(M) && lane == static_cast<int>(idx & 31))
-      taken |= 1u << (idx >> 5);
+    if (idx < static_cast<unsigned>(M) && lane == static_cast<int>(idx & 31)) {
+      const int r = idx >> 5;
+      if constexpr (kLarge)
+        taken_w[(r >> 5) * 32 + lane] |= 1u << (r & 31);
+      else
+        taken |= 1u << r;
+    }
   }
 }
 
@@ -211,9 +247,10 @@ __device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
 // zero.  Same results as column() but on ceil(ntab / 32) entries a lane.
 // Returns false, having written nothing, when an entry is negative or NaN:
 // then the T rounds may pick zeros outside the table, and column() runs.
-template <int CR, int kMode>
+template <int CR, int kMode, bool kLarge>
 __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
-                               int M, int T, int Zc, int k, bool zm,
+                               const unsigned* tabw, int M, int T, int Zc,
+                               int k, bool zm,
                                float clutter, int lane, size_t p,
                                float* colsum_out, bool* unused_out,
                                float* cand_w, int64_t* cand_m,
@@ -227,7 +264,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
     // nothing)
     float s = 0.f;
     for (int j = lane, r = 0; j < M; j += 32, ++r)
-      if ((tabmask >> r) & 1u) s += col[j];
+      if (in_table<kLarge>(tabmask, tabw, lane, r)) s += col[j];
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(kFull, s, off);
     cs = clutter + s;
@@ -250,7 +287,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
   for (int c = 0; c < CR; ++c)
     if (sm[c] >= 0) col[sm[c]] = x[c];
   for (int j = lane, r = 0; j < M; j += 32, ++r)
-    if (!((tabmask >> r) & 1u)) col[j] = xz;
+    if (!in_table<kLarge>(tabmask, tabw, lane, r)) col[j] = xz;
   if (lane == 0) {
     if constexpr (kMode == kWhole) colsum_out[p * Zc + k] = cs;
     unused_out[p * Zc + k] = zm && !any;
@@ -320,9 +357,10 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
 
 // at most 64 registers a thread, so two 512-thread CTAs fit on an SM and
 // all 200 particles of the bench shape run in one wave on 132 SMs
-template <int kMode>
+template <int kMode, bool kLarge>
 __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     Params prm, int M, int Zc, int T, int ZB, int m_off,
+    float* __restrict__ stash,
     const float* __restrict__ colsum_in,
     const float* __restrict__ pose, const float* __restrict__ mx,
     const float* __restrict__ my, const float* __restrict__ c00,
@@ -333,11 +371,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     bool* __restrict__ unused_out, int64_t* __restrict__ cand_m) {
   // shared memory: z [Zc, 2], z mask [Zc], 10 slot planes [M], the bit
   // words of the slots in the table [W = ceil(M / 32)], the table chunk
-  // [ZB, M] (the wrapper's launch_plan sizes it the same way)
+  // [ZB, M], and in the large form the warps' pick bits [warps, 32 *
+  // ceil(M / 1024)] (the wrapper's launch_plan sizes it the same way).  A
+  // large form given a stash keeps the 10 slot planes there instead, at
+  // this particle's [10, M].
   extern __shared__ float smem[];
   float* s_z = smem;
   int* s_zm = reinterpret_cast<int*>(s_z + 2 * Zc);
-  float* s_r = reinterpret_cast<float*>(s_zm + Zc);
+  const bool in_global = kLarge && stash != nullptr;
+  float* s_r = in_global ? stash + blockIdx.x * static_cast<size_t>(10 * M)
+                         : reinterpret_cast<float*>(s_zm + Zc);
   float* s_b = s_r + M;
   float* s_i00 = s_b + M;
   float* s_i01 = s_i00 + M;
@@ -347,8 +390,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   float* s_w = s_pd + M;
   float* s_row = s_w + M;      // row sums of the normalised table
   int* s_flag = reinterpret_cast<int*>(s_row + M);
-  unsigned* s_tabw = reinterpret_cast<unsigned*>(s_flag + M);  // [W]
+  unsigned* s_tabw = reinterpret_cast<unsigned*>(
+      in_global ? reinterpret_cast<float*>(s_zm + Zc)
+                : reinterpret_cast<float*>(s_flag + M));  // [W]
   float* tab = reinterpret_cast<float*>(s_tabw + (M + 31) / 32);
+  unsigned* s_taken = reinterpret_cast<unsigned*>(tab + ZB * M);
 
   // output planes, each [P, M], then col_sum [P, Zc] and cand_w [P, T*Zc];
   // kHead writes the planes but w and the column sums without clutter,
@@ -487,7 +533,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   for (int r = 0; r < (M + 31) / 32; ++r) {
     const unsigned word = s_tabw[r];
     ntab += __popc(word);
-    tabmask |= ((word >> lane) & 1u) << r;
+    if constexpr (!kLarge) tabmask |= ((word >> lane) & 1u) << r;
   }
   // the table's slots number lane and lane + 32, for column_compact
   int sm[2];
@@ -536,7 +582,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
         // the block's column sum, in column()'s order, without clutter
         float s = 0.f;
         for (int j = lane, r = 0; j < M; j += 32, ++r)
-          if ((tabmask >> r) & 1u) s += col[j];
+          if (in_table<kLarge>(tabmask, s_tabw, lane, r)) s += col[j];
         for (int off = 16; off > 0; off >>= 1)
           s += __shfl_xor_sync(kFull, s, off);
         if (lane == 0) colsum_out[p * Zc + k] = s;
@@ -545,20 +591,21 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
         const float cs_given = kMode == kTail ? colsum_in[p * Zc + k] : 0.f;
         const bool done =
             ntab <= 32
-                ? column_compact<1, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
-                                           prm.clutter, lane, p, colsum_out,
-                                           unused_out, cand_w, cand_m,
-                                           cs_given, m_off)
+                ? column_compact<1, kMode, kLarge>(
+                      col, sm, tabmask, s_tabw, M, T, Zc, k, zm, prm.clutter,
+                      lane, p, colsum_out, unused_out, cand_w, cand_m,
+                      cs_given, m_off)
             : ntab <= 64
-                ? column_compact<2, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
-                                           prm.clutter, lane, p, colsum_out,
-                                           unused_out, cand_w, cand_m,
-                                           cs_given, m_off)
+                ? column_compact<2, kMode, kLarge>(
+                      col, sm, tabmask, s_tabw, M, T, Zc, k, zm, prm.clutter,
+                      lane, p, colsum_out, unused_out, cand_w, cand_m,
+                      cs_given, m_off)
                 : false;
         if (!done)
-          column<kMode>(col, tabmask, M, T, Zc, k, zm, prm.clutter, lane, p,
-                        colsum_out, unused_out, cand_w, cand_m, cs_given,
-                        m_off);
+          column<kMode, kLarge>(
+              col, tabmask, s_tabw, s_taken + warp * 32 * ((M + 1023) >> 10),
+              M, T, Zc, k, zm, prm.clutter, lane, p, colsum_out, unused_out,
+              cand_w, cand_m, cs_given, m_off);
       }
     }
     __syncthreads();
@@ -610,27 +657,29 @@ Params unpack_params(const float* params) {
   return prm;
 }
 
-template <int kMode>
+template <int kMode, bool kLarge>
 int launch(int P, int M, int Zc, int T, int threads, int smem, int zb,
-           int m_off, const float* params, const void* colsum_in,
+           int m_off, void* stash, const float* params,
+           const void* colsum_in,
            const void* pose, const void* mx, const void* my, const void* c00,
            const void* c01, const void* c11, const void* w,
            const void* w_prev, const void* alive, const void* z,
            const void* zmask, void* out, void* unused_out, void* cand_m,
            void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      zb < 1 || M < 1 || M > 32 * 32)
+      zb < 1 || M < 1 || (!kLarge && (M > 32 * 32 || stash != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm = unpack_params(params);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        map_update2d_kernel<kMode>,
+        map_update2d_kernel<kMode, kLarge>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  map_update2d_kernel<kMode><<<P, threads, smem, st>>>(
-      prm, M, Zc, T, zb, m_off, static_cast<const float*>(colsum_in),
+  map_update2d_kernel<kMode, kLarge><<<P, threads, smem, st>>>(
+      prm, M, Zc, T, zb, m_off, static_cast<float*>(stash),
+      static_cast<const float*>(colsum_in),
       static_cast<const float*>(pose),
       static_cast<const float*>(mx), static_cast<const float*>(my),
       static_cast<const float*>(c00), static_cast<const float*>(c01),
@@ -642,20 +691,38 @@ int launch(int P, int M, int Zc, int T, int threads, int smem, int zb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// threads, smem and zb come from the wrapper's launch_plan; the form
+// follows from M: the small form at M <= 1024, else the large form, whose
+// stash (launch_plan's workspace, [P, 10, M] floats) may be null: then the
+// slot planes stay in shared memory.
+template <int kMode>
+int launch_form(int P, int M, int Zc, int T, int threads, int smem, int zb,
+                int m_off, void* stash, const float* params,
+                const void* colsum_in, const void* pose, const void* mx,
+                const void* my, const void* c00, const void* c01,
+                const void* c11, const void* w, const void* w_prev,
+                const void* alive, const void* z, const void* zmask,
+                void* out, void* unused_out, void* cand_m, void* stream) {
+  auto fn = M > 32 * 32 ? launch<kMode, true> : launch<kMode, false>;
+  return fn(P, M, Zc, T, threads, smem, zb, m_off, stash, params, colsum_in,
+            pose, mx, my, c00, c01, c11, w, w_prev, alive, z, zmask, out,
+            unused_out, cand_m, stream);
+}
+
 }  // namespace
 
-// threads, smem and zb come from the wrapper's launch_plan.  out: one float
-// buffer of 12 planes [P, M] (w, w_prev, pd, K00, K01, K10, K11, cov_upd
-// 00/01/11, z_exp r/b), then col_sum [P, Zc], then cand_w [P, T * Zc].
+// out: one float buffer of 12 planes [P, M] (w, w_prev, pd, K00, K01, K10,
+// K11, cov_upd 00/01/11, z_exp r/b), then col_sum [P, Zc], then cand_w
+// [P, T * Zc].
 extern "C" int map_update2d_launch(
     int P, int M, int Zc, int T, int threads, int smem, int zb,
     const float* params, const void* pose, const void* mx, const void* my,
     const void* c00, const void* c01, const void* c11, const void* w,
     const void* w_prev, const void* alive, const void* z, const void* zmask,
-    void* out, void* unused_out, void* cand_m, void* stream) {
-  return launch<kWhole>(P, M, Zc, T, threads, smem, zb, 0, params, nullptr,
-                       pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
-                       zmask, out, unused_out, cand_m, stream);
+    void* out, void* unused_out, void* cand_m, void* stash, void* stream) {
+  return launch_form<kWhole>(P, M, Zc, T, threads, smem, zb, 0, stash, params,
+                             nullptr, pose, mx, my, c00, c01, c11, w, w_prev,
+                             alive, z, zmask, out, unused_out, cand_m, stream);
 }
 
 // The block form on a block of M slots (the global slots m_off ..
@@ -666,17 +733,13 @@ extern "C" int map_update2d_launch(
 // [P, T * Zc]; the picks are global slot numbers.
 extern "C" int map_update2d_block_launch(
     int tail, int P, int M, int Zc, int T, int threads, int smem, int zb,
-    int m_off, const float* params, const void* colsum_in, const void* pose,
-    const void* mx, const void* my, const void* c00, const void* c01,
-    const void* c11, const void* w, const void* w_prev, const void* alive,
-    const void* z, const void* zmask, void* out, void* unused_out,
-    void* cand_m, void* stream) {
-  return tail ? launch<kTail>(P, M, Zc, T, threads, smem, zb, m_off, params,
-                              colsum_in, pose, mx, my, c00, c01, c11, w,
-                              w_prev, alive, z, zmask, out, unused_out,
-                              cand_m, stream)
-              : launch<kHead>(P, M, Zc, T, threads, smem, zb, m_off, params,
-                              colsum_in, pose, mx, my, c00, c01, c11, w,
-                              w_prev, alive, z, zmask, out, unused_out,
-                              cand_m, stream);
+    int m_off, const float* params, const void* colsum_in,
+    const void* pose, const void* mx, const void* my, const void* c00,
+    const void* c01, const void* c11, const void* w, const void* w_prev,
+    const void* alive, const void* z, const void* zmask, void* out,
+    void* unused_out, void* cand_m, void* stash, void* stream) {
+  auto fn = tail ? launch_form<kTail> : launch_form<kHead>;
+  return fn(P, M, Zc, T, threads, smem, zb, m_off, stash, params,
+            colsum_in, pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
+            zmask, out, unused_out, cand_m, stream);
 }

@@ -30,24 +30,29 @@
 // evaluations, the whole pass when no pair is gated), then again for its
 // lowest safe partner, and every slot recomputed its inverse every pass.
 //
-// Design: merge2d.cu's.  One CTA per particle (100 CTAs on 132 SMs at
-// Victoria Park's P=100: one wave), with 32 warps (one CTA an SM) and one
-// thread per slot for the slot-wise phases.  The slot fields live in shared memory
-// for the whole fixpoint, the gate fields of a slot as two float4 and a
-// float, and the pass loop runs inside the kernel with __syncthreads_or as
-// the "any merged" test.  The pair search is the gate bit mask of
-// merge_bitmask.cuh: a warp evaluates the 32 gates of a row word per
+// Design: merge2d.cu's.  One CTA per particle (100 CTAs on 132 SMs at Victoria
+// Park's P=100: one wave), with 32 warps (one CTA an SM) and one thread per
+// slot for the slot-wise phases (the small form, N <= 1024).  The slot fields
+// live in shared memory for the whole fixpoint, the gate fields of a slot as
+// two float4 and a float, and the pass loop runs inside the kernel with
+// __syncthreads_or as the "any merged" test.  The pair search is the gate bit
+// mask of merge_bitmask.cuh: a warp evaluates the 32 gates of a row word per
 // ballot, two rows at a time, each gate once a pass, and a slot finds its
 // absorber in ceil(j / 32) word tests.  The mask is N x ceil(N / 32) words
-// (32 KB at N=512, 128 KB at N=1024).  S^-1 is computed once at entry and
-// again only by an absorber, for its merged covariance.  A pass has three
-// barriers: after the gate rows, after the claims, and the "any merged"
-// test; each absorber reads its partner and writes its own fields in one
-// phase (absorbers are safe, so unclaimed, and absorbed slots absorb
-// nothing).  The i-axis of the pair search is bounded per CTA by one past
-// its highest alive slot (exact: slots only die during the fixpoint),
-// which replaces the TPU's static absorber tiers; the header bounds the
-// j-axis the same way.
+// (32 KB at N=512, 128 KB at N=1024).  S^-1 is computed once at entry and again
+// only by an absorber, for its merged covariance.  A pass has three barriers:
+// after the gate rows, after the claims, and the "any merged" test; each
+// absorber reads its partner and writes its own fields in one phase
+// (absorbers are safe, so unclaimed, and absorbed slots absorb nothing).  The
+// i-axis of the pair search is bounded per CTA by one past its highest alive
+// slot (exact: slots only die during the fixpoint), which replaces the TPU's
+// static absorber tiers; the header bounds the j-axis the same way.
+//
+// Large form (N > 1024): merge2d.cu's.  The same kernel (kLarge) keeps the
+// fields, the claims and the mask in the particle's part of a global
+// workspace laid out as the small form's shared memory (680,192 B a
+// particle at N=2048, 9,012,224 B at N=8192), with 1024 threads striding
+// over the slots; the statements are the small form's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,19 +117,33 @@ __device__ __forceinline__ void invert(const float* c, float4& ga, float4& gb,
   i22 = (a * d - b * b) / det;
 }
 
+// The words of one particle's fields, claims and masks: 19 slot planes,
+// the gate bit mask [N, W] and the safe-absorber words [W].  The small
+// form's shared memory; the large form's workspace stride, rounded up to
+// whole float4s so that every particle's float4 planes are aligned.
+__host__ __device__ constexpr size_t particle_words(int N, int W) {
+  return 19 * static_cast<size_t>(N) + static_cast<size_t>(N) * W + W;
+}
+
 // inputs: mean [3, P, N], cov [6, P, N], w, w_prev [P, N]; out: one float
-// buffer of 11 planes [P, N] (mean x/y/d, cov 00/01/02/11/12/22, w, w_prev)
+// buffer of 11 planes [P, N] (mean x/y/d, cov 00/01/02/11/12/22, w, w_prev).
+// kLarge: the fields and masks live in this particle's part of the global
+// workspace ws (stride float4s a particle) instead of shared memory, and
+// the slot-wise phases stride over the slots (for_slots); the small form
+// takes one slot a thread.
+template <bool kLarge>
 __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     float t2, float infl, int max_passes, int N,
     const float* __restrict__ mean, const float* __restrict__ cov,
     const float* __restrict__ w_in, const float* __restrict__ wp_in,
     const bool* __restrict__ alive_in, float* __restrict__ out,
-    bool* __restrict__ alive_out) {
-  // shared memory (the wrapper's launch_plan sizes it the same way)
+    bool* __restrict__ alive_out, float4* __restrict__ ws, size_t stride) {
+  // the layout (the wrapper's launch_plan sizes it the same way)
   const int W = merge_bitmask::words(N);
   extern __shared__ float4 smem[];
-  float4* s_ga = smem;                // (x, y, d, S^-1_00)
-  float4* s_gb = s_ga + N;            // (2 S^-1_01, 2 S^-1_02, S^-1_11, 2 S^-1_12)
+  // (x, y, d, S^-1_00), then (2 S^-1_01, 2 S^-1_02, S^-1_11, 2 S^-1_12)
+  float4* s_ga = kLarge ? ws + blockIdx.x * stride : smem;
+  float4* s_gb = s_ga + N;
   float* s_i22 = reinterpret_cast<float*>(s_gb + N);
   float* s_cov = s_i22 + N;           // kCov planes of N
   float* s_w = s_cov + kCov * N;
@@ -136,13 +155,13 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
   __shared__ int s_hi;
 
   const size_t PN = static_cast<size_t>(gridDim.x) * N;
-  const int i = threadIdx.x;
-  const bool act = i < N;
-  const size_t pi = static_cast<size_t>(blockIdx.x) * N + i;
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * N;
+  using merge_bitmask::for_slots;
 
   // S^-1: once here, then again only where a merge changed S
-  if (i == 0) s_hi = 0;
-  if (act) {
+  if (threadIdx.x == 0) s_hi = 0;
+  for_slots<kLarge>(N, [&](int i) {
+    const size_t pi = p0 + i;
     float c[kCov];
     #pragma unroll
     for (int t = 0; t < kCov; ++t) c[t] = s_cov[t * N + i] = cov[t * PN + pi];
@@ -157,10 +176,12 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     s_wp[i] = wp_in[pi];
     s_alive[i] = alive_in[pi] ? 1 : 0;
     s_jstar[i] = N;
-  }
+  });
   merge_bitmask::clear_safe(s_safe, W);
   __syncthreads();
-  if (act && s_alive[i]) atomicMax(&s_hi, i + 1);
+  for_slots<kLarge>(N, [&](int i) {
+    if (s_alive[i]) atomicMax(&s_hi, i + 1);
+  });
   __syncthreads();
   const int hi = s_hi;
   const Gate3 gate{s_ga, s_gb, s_i22, t2};
@@ -169,61 +190,67 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     merge_bitmask::gate_rows(gate, s_alive, hi, W, s_gate, s_safe);
     __syncthreads();
     // a safe slot has no gated partner below it, so nothing to claim
-    if (i < hi && !((s_safe[i >> 5] >> (i & 31)) & 1u))
-      merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
+    for_slots<kLarge>(hi, [&](int i) {
+      if (!((s_safe[i >> 5] >> (i & 31)) & 1u))
+        merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
+    });
     __syncthreads();
 
     // An absorber is safe, so no slot claims it, and an absorbed slot
     // absorbs nothing: each absorber alone reads its fields and its
     // partner's, and writes its own, so reads and writes need no barrier.
-    const int js = act ? s_jstar[i] : N;
-    bool ok = false;
-    if (js < N) {
-      const float w1 = s_w[i], w2 = s_w[js];
-      const float wm = w1 + w2;
-      ok = wm != 0.f;
-      const float w1n = w1 / wm, w2n = w2 / wm;
-      const float4 a1 = s_ga[i], a2 = s_ga[js];
-      const float x1[3] = {a1.x, a1.y, a1.z};
-      const float x2[3] = {a2.x, a2.y, a2.z};
-      float nm[3], d1[3], d2[3];
-      #pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        nm[t] = x1[t] * w1n + x2[t] * w2n;
-        d1[t] = nm[t] - x1[t];
-        d2[t] = nm[t] - x2[t];
-      }
-      // packed (r, c) pairs in tri_index order
-      const int pr[kCov] = {0, 0, 0, 1, 1, 2};
-      const int pc[kCov] = {0, 1, 2, 1, 2, 2};
-      float nc[kCov];
-      #pragma unroll
-      for (int t = 0; t < kCov; ++t) {
-        const float* cp = s_cov + t * N;
-        nc[t] = w1n * (cp[i] + infl * d1[pr[t]] * d1[pc[t]]) +
-                w2n * (cp[js] + infl * d2[pr[t]] * d2[pc[t]]);
-      }
-      if (ok) {
-        float4 ga, gb;
-        ga.x = nm[0];
-        ga.y = nm[1];
-        ga.z = nm[2];
+    bool any = false;
+    for_slots<kLarge>(N, [&](int i) {
+      const int js = s_jstar[i];
+      if (js < N) {
+        const float w1 = s_w[i], w2 = s_w[js];
+        const float wm = w1 + w2;
+        const bool ok = wm != 0.f;
+        const float w1n = w1 / wm, w2n = w2 / wm;
+        const float4 a1 = s_ga[i], a2 = s_ga[js];
+        const float x1[3] = {a1.x, a1.y, a1.z};
+        const float x2[3] = {a2.x, a2.y, a2.z};
+        float nm[3], d1[3], d2[3];
         #pragma unroll
-        for (int t = 0; t < kCov; ++t) s_cov[t * N + i] = nc[t];
-        invert(nc, ga, gb, s_i22[i]);
-        s_ga[i] = ga;
-        s_gb[i] = gb;
-        s_w[i] = wm;
-        s_wp[i] = 0.f;
-        s_alive[js] = 0;
+        for (int t = 0; t < 3; ++t) {
+          nm[t] = x1[t] * w1n + x2[t] * w2n;
+          d1[t] = nm[t] - x1[t];
+          d2[t] = nm[t] - x2[t];
+        }
+        // packed (r, c) pairs in tri_index order
+        const int pr[kCov] = {0, 0, 0, 1, 1, 2};
+        const int pc[kCov] = {0, 1, 2, 1, 2, 2};
+        float nc[kCov];
+        #pragma unroll
+        for (int t = 0; t < kCov; ++t) {
+          const float* cp = s_cov + t * N;
+          nc[t] = w1n * (cp[i] + infl * d1[pr[t]] * d1[pc[t]]) +
+                  w2n * (cp[js] + infl * d2[pr[t]] * d2[pc[t]]);
+        }
+        if (ok) {
+          float4 ga, gb;
+          ga.x = nm[0];
+          ga.y = nm[1];
+          ga.z = nm[2];
+          #pragma unroll
+          for (int t = 0; t < kCov; ++t) s_cov[t * N + i] = nc[t];
+          invert(nc, ga, gb, s_i22[i]);
+          s_ga[i] = ga;
+          s_gb[i] = gb;
+          s_w[i] = wm;
+          s_wp[i] = 0.f;
+          s_alive[js] = 0;
+        }
+        any |= ok;
       }
-    }
-    if (act) s_jstar[i] = N;
+      s_jstar[i] = N;
+    });
     merge_bitmask::clear_safe(s_safe, W);
-    if (!__syncthreads_or(ok)) break;
+    if (!__syncthreads_or(any)) break;
   }
 
-  if (act) {
+  for_slots<kLarge>(N, [&](int i) {
+    const size_t pi = p0 + i;
     out[pi] = s_ga[i].x;
     out[PN + pi] = s_ga[i].y;
     out[2 * PN + pi] = s_ga[i].z;
@@ -232,29 +259,40 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     out[9 * PN + pi] = s_w[i];
     out[10 * PN + pi] = s_wp[i];
     alive_out[pi] = s_alive[i] != 0;
-  }
+  });
 }
 
 }  // namespace
 
-// threads (a multiple of 32, at least N) and smem come from the wrapper's
-// launch_plan
+// threads (a multiple of 32; at least N in the small form), smem and the
+// workspace come from the wrapper's launch_plan.  The form follows from N:
+// the small form (N <= 1024) keeps fields and masks in smem bytes of shared
+// memory, the large form in ws (ws_bytes, at least
+// P * 16 * ceil(particle_words / 4)).
 extern "C" int merge3d_launch(int P, int N, int threads, int smem, float t2,
                               float infl, int max_passes, const void* mean,
                               const void* cov, const void* w, const void* wp,
                               const void* alive, void* out, void* alive_out,
-                              void* stream) {
-  if (threads < N || threads > kMaxThreads || threads % 32 != 0)
+                              void* ws, size_t ws_bytes, void* stream) {
+  const int W = merge_bitmask::words(N);
+  const size_t stride = (particle_words(N, W) + 3) / 4;  // float4s
+  const bool large = N > kMaxThreads;
+  if (threads > kMaxThreads || threads % 32 != 0 || threads < 32 || N < 1 ||
+      (large ? (ws == nullptr || ws_bytes < P * stride * sizeof(float4) ||
+                static_cast<size_t>(N) * W >= (1u << 31))
+             : threads < N))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = large ? merge3d_kernel<true> : merge3d_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        merge3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  merge3d_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       t2, infl, max_passes, N, static_cast<const float*>(mean),
       static_cast<const float*>(cov), static_cast<const float*>(w),
       static_cast<const float*>(wp), static_cast<const bool*>(alive),
-      static_cast<float*>(out), static_cast<bool*>(alive_out));
+      static_cast<float*>(out), static_cast<bool*>(alive_out),
+      static_cast<float4*>(ws), stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
-// The pair search of one Gaussian-mixture merge pass as bit masks in
-// shared memory, for the merge kernels (one CTA per particle, slot fields
-// in shared memory, blockDim a multiple of 32).
+// The pair search of one Gaussian-mixture merge pass as bit masks, for the
+// merge kernels (one CTA per particle, blockDim a multiple of 32).  The slot
+// fields and the masks live in shared memory (the small forms, N <= 1024)
+// or in the particle's part of a global workspace (the large forms); the
+// functions take either, through generic pointers.
 //
 // Over the alive slots below hi (one past the highest alive slot):
 //   gate_rows   G[j * W + w] bit b: slot k = 32 w + b < j is gated with j,
@@ -17,8 +19,9 @@
 //               atomicMin.  ceil(j / 32) word tests instead of up to j
 //               gate evaluations.
 //   clear_safe  zeroes A for the next pass, anywhere after the last claim.
-// W = ceil(N / 32) words a row; G holds N * W words, A holds W.  Between
-// clear_safe, gate_rows and claim the block needs a __syncthreads.
+// W = ceil(N / 32) words a row; G holds N * W words (indexed with 32-bit
+// ints: N * W < 2^31), A holds W.  Between clear_safe, gate_rows and claim
+// the block needs a __syncthreads.
 //
 // Gate is the kernel's pair test: fields(s) loads slot s's fields,
 // test(fk, fj) decides the pair (k, j), k < j.
@@ -31,7 +34,7 @@ namespace merge_bitmask {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int words(int n) { return (n + 31) >> 5; }
+__host__ __device__ __forceinline__ int words(int n) { return (n + 31) >> 5; }
 
 template <class Gate>
 __device__ __forceinline__ void gate_rows(const Gate& gate, const int* alive,
@@ -88,6 +91,18 @@ __device__ __forceinline__ void claim(int j, const int* alive, int hi, int W,
 
 __device__ __forceinline__ void clear_safe(unsigned* A, int W) {
   for (int w = threadIdx.x; w < W; w += blockDim.x) A[w] = 0;
+}
+
+// A slot-wise phase over slots 0 .. n - 1.  The small form (blockDim >= n):
+// thread i takes slot i alone, one branch and no loop.  The large form:
+// each thread takes every blockDim-th slot from its own.
+template <bool kLarge, class F>
+__device__ __forceinline__ void for_slots(int n, F&& f) {
+  if constexpr (kLarge) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) f(i);
+  } else if (static_cast<int>(threadIdx.x) < n) {
+    f(static_cast<int>(threadIdx.x));
+  }
 }
 
 }  // namespace merge_bitmask

@@ -322,7 +322,8 @@ class RBPHDFilter:
                 "mesh)")
 
     def _fused_2d(self, meas, D, dz) -> bool:
-        """Whether the map update runs the ``map_update2d`` kernel."""
+        """Whether the map update runs the ``map_update2d`` kernel (at any
+        map capacity: its launch plan picks the form from the shape)."""
         return (isinstance(meas, RangeBearing) and D == 2 and dz == 2
                 and tuple(self.gates.wrap_dims) == (1,))
 

@@ -198,7 +198,8 @@ def merge(gm: GMState, threshold, f_inflation,
     reference's weight-sorted vector: the pass's lowest-index pair claiming
     depends on slot order, and unsorted entry measurably degrades the
     filter.  The merge runs in the CUDA kernel of its dimension for CUDA
-    tensors and in the plain twin for CPU tensors
+    tensors, at any capacity (its launch plan picks the form from the
+    shape), and in the plain twin for CPU tensors
     (:func:`merge2d_kernel.merge2d`, :func:`merge3d_kernel.merge3d`).
     """
     gm = compact(gm, gm.capacity)

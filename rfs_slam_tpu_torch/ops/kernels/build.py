@@ -63,6 +63,28 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def workspace_bytes(P: int, per_particle: int) -> int:
+    """Bytes of a large form's global workspace: ``P`` parts of
+    ``per_particle`` bytes, each rounded up to 16 so that every part's
+    float4 fields are aligned."""
+    return P * -(-per_particle // 16) * 16
+
+
+def workspace(nbytes: int, device):
+    """A kernel's global workspace of ``nbytes`` (None for 0), from
+    PyTorch's caching allocator on the current stream: the launch that
+    uses it is queued on that stream, so the memory is reused only after
+    the launch."""
+    if not nbytes:
+        return None
+    return torch.empty(-(-nbytes // 4), dtype=torch.float32, device=device)
+
+
+def ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def _target(name: str):
     """(source, library path, nvcc flags) of kernel ``name``.  The library
     name hashes the source, the shared headers and the flags."""

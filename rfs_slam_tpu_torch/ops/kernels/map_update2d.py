@@ -5,10 +5,14 @@ Port of the JAX package's Pallas kernel ``ops/pallas/map_update2d.py``.  The
 kernel (``csrc/map_update2d.cu``) computes the whole map-update head per
 particle in one CTA and emits only plane-sized results; the ``[Zc, M]``
 weight table stays in shared memory (in chunks of columns at large M; see
-:func:`launch_plan`).  The exact top-k over the ``Zc * T``
-survivors, the ``m + K nu`` reconstruction and ``replace_weakest`` stay in
-plain PyTorch (``filters/rbphd.py``), as they stay in XLA in the JAX
-package.
+:func:`launch_plan`).  Two forms, chosen from the shape: the small form
+(M <= 1,024: a slot's table and pick bits in a lane's 32-bit words) and
+the large form (any M above: the bits in shared words, the per-slot stash
+in a global workspace where shared memory cannot hold it), with the same
+statements of arithmetic and the same summation order.  The exact top-k
+over the ``Zc * T`` survivors, the ``m + K nu`` reconstruction and
+``replace_weakest`` stay in plain PyTorch (``filters/rbphd.py``), as they
+stay in XLA in the JAX package.
 
 :func:`fused_map_update2d` launches the kernel for CUDA tensors and runs
 :func:`map_update2d_plain` for CPU tensors; nothing falls back.
@@ -40,14 +44,15 @@ from rfs_slam_tpu_torch.ops.ekf import InnovationGates, correct_all
 from rfs_slam_tpu_torch.ops.kernels import build
 
 N_PARAMS = 12
-MAX_SLOTS = 1024
+SMALL_SLOTS = 1024   # the small form: a lane's slot bits in one word
 MAX_THREADS = 512    # 16 warps: two CTAs an SM (the kernel's launch bounds)
-SLOT_PLANES = 10     # per-slot words the kernel keeps in shared memory
+SLOT_PLANES = 10     # per-slot words of the kernel's stash
 TABLE_BYTES = 96 * 1024  # the weight-table chunk's shared memory
 
 # kernel launches made by fused_map_update2d and the block form's head and
-# tail (the twin does not count)
+# tail (the twin does not count), and those of them in the large form
 launches = 0
+large_launches = 0
 
 
 class FusedMapUpdate(NamedTuple):
@@ -198,29 +203,44 @@ class LaunchPlan(NamedTuple):
     threads: int   # a multiple of 32, at most MAX_THREADS
     smem: int      # dynamic shared memory bytes
     zb: int        # table columns held in shared memory at a time
+    form: str = "small"   # "small" or "large"
+    workspace: int = 0    # global bytes of the large form's stash (or 0)
 
 
 def launch_plan(P: int, M: int, Zc: int, T: int) -> LaunchPlan:
     """The kernel's launch configuration, one CTA per particle.
 
     Shared memory holds z and its mask (3 words a measurement), the
-    ``SLOT_PLANES`` per-slot planes, a bit word per 32 slots and a chunk of
-    ``zb`` table columns (all ``Zc`` at bench shape; fewer at large M, so
-    that the chunk stays within ``TABLE_BYTES``), as
+    ``SLOT_PLANES`` per-slot planes (the stash), a bit word per 32 slots
+    and a chunk of ``zb`` table columns (all ``Zc`` at bench shape; fewer
+    at large M, so that the chunk stays within ``TABLE_BYTES``), as
     ``csrc/map_update2d.cu`` lays it out.  One warp per slot word or per
-    column of the chunk, at most 16.  Raises ``ValueError`` for a shape the
-    kernel does not take.
+    column of the chunk, at most 16.  The large form (M >
+    ``SMALL_SLOTS``) adds the warps' pick bits (32 * ceil(M / 1024) words
+    a warp) and, where the whole no longer fits, moves the stash to a
+    global workspace of ``4 * SLOT_PLANES * P * M`` bytes.  Raises
+    ``ValueError`` for a shape neither form takes (one table column and
+    the bits past shared memory).
     """
-    if P < 1 or not 1 <= M <= MAX_SLOTS or Zc < 0 or T < 0:
+    if P < 1 or M < 1 or Zc < 0 or T < 0:
         raise ValueError(f"map_update2d: no launch for P={P}, M={M}, "
-                         f"Zc={Zc}, T={T} (1 <= M <= {MAX_SLOTS})")
+                         f"Zc={Zc}, T={T}")
     zb = max(1, min(Zc, TABLE_BYTES // (4 * M)))
     warps = min(MAX_THREADS // 32, max(-(-M // 32), zb))
-    smem = 4 * (3 * Zc + SLOT_PLANES * M + -(-M // 32) + zb * M)
-    if smem > build.MAX_SMEM:
-        raise ValueError(f"map_update2d: Zc={Zc} needs {smem} B of shared "
-                         f"memory, more than {build.MAX_SMEM}")
-    return LaunchPlan(32 * warps, smem, zb)
+    fixed = 3 * Zc + -(-M // 32) + zb * M     # z, table bits, table chunk
+    if M <= SMALL_SLOTS:
+        plan = LaunchPlan(32 * warps, 4 * (fixed + SLOT_PLANES * M), zb)
+    else:
+        fixed += warps * 32 * -(-M // 1024)   # the warps' pick bits
+        plan = LaunchPlan(32 * warps, 4 * (fixed + SLOT_PLANES * M), zb,
+                          "large")
+        if plan.smem > build.MAX_SMEM:        # the stash to global memory
+            plan = LaunchPlan(32 * warps, 4 * fixed, zb, "large",
+                              4 * SLOT_PLANES * P * M)
+    if plan.smem > build.MAX_SMEM:
+        raise ValueError(f"map_update2d: M={M}, Zc={Zc} needs {plan.smem} B "
+                         f"of shared memory, more than {build.MAX_SMEM}")
+    return plan
 
 
 def _lib():
@@ -228,9 +248,15 @@ def _lib():
     if lib.map_update2d_launch.argtypes is None:
         lib.map_update2d_launch.argtypes = (
             [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_float)]
-            + [ctypes.c_void_p] * 15)
+            + [ctypes.c_void_p] * 16)
         lib.map_update2d_launch.restype = ctypes.c_int
     return lib
+
+
+def _plan_args(plan: LaunchPlan) -> tuple:
+    """The plan as the C entries take it: threads, smem, zb (the form
+    follows from M)."""
+    return plan.threads, plan.smem, plan.zb
 
 
 @functools.lru_cache(maxsize=8)
@@ -251,7 +277,7 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
     if not pose.is_cuda:
         return map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev,
                                   alive, z, z_mask, params, new_per_z)
-    global launches
+    global launches, large_launches
     P, M = w.shape
     Zc = z.shape[0]
     T = new_per_z
@@ -276,14 +302,16 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
     cw_o = out[12 * n + P * Zc:].view(P, T * Zc)
     un_o = torch.empty((P, Zc), dtype=torch.bool, device=dev)
     cm_o = torch.empty((P, T * Zc), dtype=torch.int64, device=dev)
+    stash = build.workspace(plan.workspace, dev)
     err = _lib().map_update2d_launch(
-        P, M, Zc, T, *plan, _c_params(tuple(params)),
+        P, M, Zc, T, *_plan_args(plan), _c_params(tuple(params)),
         *(t.data_ptr() for t in (*floats[:8], alive, floats[8], z_mask, out,
                                  un_o, cm_o)),
-        build.stream_of(pose))
+        build.ptr(stash), build.stream_of(pose))
     if err != 0:
         raise RuntimeError(f"map_update2d launch failed: CUDA error {err}")
     launches += 1
+    large_launches += plan.form == "large"
     return FusedMapUpdate(w=planes[0], w_prev=planes[1], pd=planes[2],
                           col_sum=cs_o, unused=un_o, cand_w=cw_o,
                           cand_m=cm_o, K=planes[3:7], cov_upd=planes[7:10],
@@ -310,23 +338,25 @@ def _block_inputs(pose, mx, my, c00, c01, c11, w, w_prev, alive, z, z_mask,
 
 def _block_launch(tail, plan, params, m_offset, col_sum, ins, out, unused,
                   cand_m, pose, shape):
-    global launches
+    global launches, large_launches
     P, M, Zc, T = shape
     lib = build.load("map_update2d")
     if lib.map_update2d_block_launch.argtypes is None:
         lib.map_update2d_block_launch.argtypes = (
             [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_float)]
-            + [ctypes.c_void_p] * 16)
+            + [ctypes.c_void_p] * 17)
         lib.map_update2d_block_launch.restype = ctypes.c_int
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    stash = build.workspace(plan.workspace, pose.device)
     err = lib.map_update2d_block_launch(
-        int(tail), P, M, Zc, T, *plan, int(m_offset), _c_params(tuple(params)),
-        ptr(col_sum), *(t.data_ptr() for t in ins), out.data_ptr(),
-        ptr(unused), ptr(cand_m), build.stream_of(pose))
+        int(tail), P, M, Zc, T, *_plan_args(plan), int(m_offset),
+        _c_params(tuple(params)), build.ptr(col_sum),
+        *(t.data_ptr() for t in ins), out.data_ptr(), build.ptr(unused),
+        build.ptr(cand_m), build.ptr(stash), build.stream_of(pose))
     if err != 0:
         raise RuntimeError(f"map_update2d block launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    large_launches += plan.form == "large"
 
 
 def map_update2d_head(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,

@@ -5,7 +5,10 @@ Port of the JAX package's Pallas kernel ``ops/pallas/merge3d.py``.  The
 kernel (``csrc/merge3d.cu``) runs the whole pass loop per particle in one
 CTA, its pair search the gate bit mask of ``csrc/merge_bitmask.cuh``; the
 twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`, which is
-D-generic.
+D-generic.  Two forms, chosen by :func:`launch_plan` from the shape, as
+``merge2d``'s: the small form (N <= 1,024: one thread per slot, fields and
+masks in shared memory) and the large form (any N above: the same
+statements, fields and masks in a global workspace).
 
 :func:`merge3d` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; nothing falls back.
@@ -22,14 +25,17 @@ from rfs_slam_tpu_torch.core.state import GMState
 from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops.kernels import build
 
-MAX_SLOTS = 1024  # one thread per slot
+SMALL_SLOTS = 1024  # the small form: one thread per slot
+SLOT_PLANES = 19   # per-slot words of the fields and the claims
 # 32 warps for the gate rows: at Victoria Park's P=100 one CTA an SM fits
 # every particle in one wave, and 32 warps ran the kernel ~8% faster
 # than 16 on an H100 (PERF.md, section 6)
 THREADS = 1024
 
-# kernel launches made by merge3d (the twin does not count)
+# kernel launches made by merge3d (the twin does not count), and those of
+# them in the large form
 launches = 0
+large_launches = 0
 
 
 def merge3d_plain(gm: GMState, threshold, f_inflation,
@@ -39,25 +45,34 @@ def merge3d_plain(gm: GMState, threshold, f_inflation,
 
 
 class LaunchPlan(NamedTuple):
-    threads: int   # a multiple of 32, at least N
+    threads: int   # a multiple of 32, at least N in the small form
     smem: int      # dynamic shared memory bytes
+    form: str = "small"   # "small" or "large"
+    workspace: int = 0    # global workspace bytes (the large form)
 
 
 def launch_plan(P: int, N: int) -> LaunchPlan:
     """The kernel's launch configuration, one CTA per particle of 32
-    warps, one thread per slot.  Shared memory holds
-    19 slot planes (9 of gate fields, 6 of covariances, w, w_prev, alive
-    and the claims), the gate bit mask (N rows of ceil(N / 32) words) and
-    the safe-absorber words, as ``csrc/merge3d.cu`` lays it out.  Raises
-    ``ValueError`` for a shape the kernel does not take."""
-    if P < 1 or not 1 <= N <= MAX_SLOTS:
-        raise ValueError(f"merge3d: no launch for P={P}, N={N} "
-                         f"(1 <= N <= {MAX_SLOTS})")
+    warps.  The small form (N <= ``SMALL_SLOTS``), one thread per slot:
+    shared memory holds 19 slot planes (9 of gate fields, 6 of
+    covariances, w, w_prev, alive and the claims), the gate bit mask (N
+    rows of ceil(N / 32) words) and the safe-absorber words, as
+    ``csrc/merge3d.cu`` lays it out.  The large form (N above): the
+    threads stride over the slots, no dynamic shared memory, the same
+    layout per particle in a global workspace of
+    :func:`build.workspace_bytes`.  Raises ``ValueError`` for a shape
+    neither form takes (N * ceil(N / 32) >= 2**31: the mask's 32-bit
+    index)."""
     words = -(-N // 32)
-    smem = 4 * (19 * N + N * words + words)
-    if smem > build.MAX_SMEM:
-        raise ValueError(f"merge3d: N={N} needs {smem} B of shared memory")
-    return LaunchPlan(THREADS, smem)
+    if P < 1 or N < 1 or N * words >= 2**31:
+        raise ValueError(f"merge3d: no launch for P={P}, N={N}")
+    layout = 4 * (SLOT_PLANES * N + N * words + words)
+    if N > SMALL_SLOTS:
+        return LaunchPlan(THREADS, 0, "large",
+                          build.workspace_bytes(P, layout))
+    if layout > build.MAX_SMEM:
+        raise ValueError(f"merge3d: N={N} needs {layout} B of shared memory")
+    return LaunchPlan(THREADS, layout)
 
 
 def _lib():
@@ -65,7 +80,8 @@ def _lib():
     if lib.merge3d_launch.argtypes is None:
         lib.merge3d_launch.argtypes = (
             [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_int] + [ctypes.c_void_p] * 8)
+                                  ctypes.c_int] + [ctypes.c_void_p] * 8
+            + [ctypes.c_size_t, ctypes.c_void_p])
         lib.merge3d_launch.restype = ctypes.c_int
     return lib
 
@@ -74,12 +90,13 @@ def merge3d(gm: GMState, threshold, f_inflation,
             max_passes: int = 8) -> GMState:
     """Merge fixpoint of a D=3 mixture whose slots are compacted (alive
     first, by descending weight; see ops/gm.py:merge).  The CUDA kernel for
-    CUDA tensors, the plain twin for CPU tensors."""
+    CUDA tensors (the form :func:`launch_plan` picks from N), the plain
+    twin for CPU tensors."""
     if gm.dim != 3:
         raise ValueError(f"merge3d: D={gm.dim}, needs 3-D landmarks")
     if not gm.w.is_cuda:
         return merge3d_plain(gm, threshold, f_inflation, max_passes)
-    global launches
+    global launches, large_launches
     P, N = gm.w.shape
     plan = launch_plan(P, N)
     dev = gm.w.device
@@ -92,13 +109,16 @@ def merge3d(gm: GMState, threshold, f_inflation,
     # w, w_prev
     out = torch.empty((11, P, N), dtype=torch.float32, device=dev)
     alive_o = torch.empty_like(alive)
+    ws = build.workspace(plan.workspace, dev)
     err = _lib().merge3d_launch(
-        P, N, *plan, float(threshold) * float(threshold), float(f_inflation),
+        P, N, plan.threads, plan.smem,
+        float(threshold) * float(threshold), float(f_inflation),
         int(max_passes),
         *(t.data_ptr() for t in (mean, cov, w, wp, alive, out, alive_o)),
-        build.stream_of(w))
+        build.ptr(ws), plan.workspace, build.stream_of(w))
     if err != 0:
         raise RuntimeError(f"merge3d launch failed: CUDA error {err}")
     launches += 1
+    large_launches += plan.form == "large"
     return GMState(mean=out[0:3], cov=out[3:9], w=out[9], w_prev=out[10],
                    alive=alive_o)

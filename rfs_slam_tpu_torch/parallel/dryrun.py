@@ -5,13 +5,15 @@ unsharded run.
 
     python -m rfs_slam_tpu_torch.parallel.dryrun --ranks N \
         [--path replay|vp|fastslam|mh] [--steps S] [--device cpu] \
-        [--map-shards B [--teacher-forced W]]
+        [--map-shards B [--teacher-forced W]] [--map-capacity M]
 
 It needs as many GPUs as ranks (NCCL), or ``--device cpu`` (gloo ranks on
 the CPU).  ``--map-shards B`` runs the replay on the ``N / B`` x ``B``
 particles x map mesh; ``--teacher-forced W`` then steps it from the
 unsharded run's state at every step after ``W`` free steps, and holds
 each step to the unsharded one (:func:`teacher_forced`).
+``--map-capacity M`` runs the replay with maps of ``M`` slots in place of
+the bench filter's 128 (the kernels' large forms past 1,024).
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def prepare(paths, workdir: str) -> None:
                                    FASTSLAM_KINDS[path])
 
 
-def setup(path: str, steps: int, device: torch.device, workdir: str):
+def setup(path: str, steps: int, device: torch.device, workdir: str,
+          map_capacity: int | None = None):
     """``(filter, drive)`` of a path at full width on ``device``:
     ``drive(gen, mesh)`` puts the inputs on the device and returns
     ``run(on_step)``, which runs ``steps`` steps (frames) from the initial
@@ -72,7 +75,7 @@ def setup(path: str, steps: int, device: torch.device, workdir: str):
     state (the rank's block under ``mesh``).
 
     * ``replay``: RB-PHD on ``native/bl_dump`` with bench.py's filter
-      (P=200, M=128, Zc=40), ``sim2d_common.steps``;
+      (P=200, M=128 or ``map_capacity``, Zc=40), ``sim2d_common.steps``;
     * ``vp``: RB-PHD on the seed-0 synthetic Victoria Park stream (P=100,
       M=512, Zc=24, D=3), ``_vp_common.make_frame_step``;
     * ``fastslam``: FastSLAM 1.0 on ``sim2d.generate(traj_seed=1,
@@ -82,12 +85,15 @@ def setup(path: str, steps: int, device: torch.device, workdir: str):
     """
     from rfs_slam_tpu_torch.apps import sim2d_common as loop
 
+    if map_capacity and path != "replay":
+        raise ValueError(f"--map-capacity sizes the replay's maps, not "
+                         f"{path!r}'s")
     if path == "replay":
         from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app
         from rfs_slam_tpu_torch.io import sim2d
 
         sim_cfg = sim2d.Sim2DConfig()
-        filt = app.build_filter(sim_cfg, device)
+        filt = app.build_filter(sim_cfg, device, map_capacity=map_capacity)
         _, inputs = app.load_bl_dump(BL_DUMP, steps + 1)
         din = loop.device_inputs(inputs, device)
         return filt, sim2d_drive(filt, din, sim_cfg.dt)
@@ -170,12 +176,12 @@ def _host(obj):
 
 def drive_path(path: str, steps: int, device: torch.device, workdir: str,
                sharded: bool = False, sync_check: bool = True,
-               map_shards: int = 0) -> dict:
+               map_shards: int = 0, map_capacity: int | None = None) -> dict:
     """:func:`drive_logged` of a path (:func:`setup`), generator seed 0,
     after :data:`WARMUP_STEPS` steps of a run of its own: the one-time
     costs of a process's first steps stay out of the timed run."""
     for n in (WARMUP_STEPS, steps):
-        filt, drive = setup(path, n, device, workdir)
+        filt, drive = setup(path, n, device, workdir, map_capacity)
         out = drive_logged(filt, drive, n, device, sharded,
                            sync_check=sync_check, map_shards=map_shards)
     return out
@@ -252,7 +258,7 @@ def drive_logged(filt, drive, steps: int, device: torch.device,
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     out = {"launches": {k: m.launches for k, m in kernels.items()},
-           "wall_s": wall}
+           "wall_s": wall, "map_capacity": filt.cfg.map_capacity}
     if mesh is not None:
         out.update(collectives=dict(mesh.stats), p_local=p,
                    backend=dist.get_backend(mesh.group))
@@ -368,23 +374,21 @@ def teacher_forced(filt, din, dt: float, warm: int, steps: int, mesh,
 def _rank_main(rank: int, world: int, coordinator: str, device_type: str,
                paths, workdir: str, result_path: str,
                backend: str | None, sync_check: bool,
-               map_shards: int = 0, teacher: int | None = None) -> None:
+               map_shards: int = 0, teacher: int | None = None,
+               map_capacity: int | None = None) -> None:
     """One rank of :func:`run_sharded`: join the group (even alone, so the
     collectives go through the backend), drive each path sharded (with
-    ``teacher``, teacher-forced after that many free steps), and (rank 0)
-    pickle the results."""
-    if device_type == "cpu":
-        torch.set_num_threads(1)
-        device = torch.device("cpu")
-    else:
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+    ``teacher``, teacher-forced after that many free steps; with
+    ``map_capacity``, the replay's maps that wide), and (rank 0) pickle
+    the results."""
+    device = rank_device(rank, device_type)
     init_process_group(coordinator, world, rank, device, backend)
     try:
         results = {path: (drive_path(path, steps, device, workdir, True,
-                                     sync_check, map_shards)
+                                     sync_check, map_shards, map_capacity)
                           if teacher is None else
                           teacher_path(path, teacher, steps, device, workdir,
-                                       map_shards))
+                                       map_shards, map_capacity))
                    for path, steps in paths}
         if rank == 0:
             with open(result_path, "wb") as f:
@@ -394,36 +398,29 @@ def _rank_main(rank: int, world: int, coordinator: str, device_type: str,
 
 
 def teacher_path(path: str, warm: int, steps: int, device: torch.device,
-                 workdir: str, map_shards: int = 0) -> dict:
+                 workdir: str, map_shards: int = 0,
+                 map_capacity: int | None = None) -> dict:
     """:func:`teacher_forced` of a 2-D path (:func:`setup`'s inputs) over
     the process group's mesh (:func:`sharded_mesh`)."""
-    filt, drive = setup(path, warm + steps, device, workdir)
+    filt, drive = setup(path, warm + steps, device, workdir, map_capacity)
     mesh = sharded_mesh(filt, device, map_shards)
     out = teacher_forced(filt, drive.din, drive.dt, warm, steps, mesh)
     out.update(p_local=mesh.p_local, backend=dist.get_backend(mesh.group),
-               particles=mesh.p_global)
+               particles=mesh.p_global, map_capacity=filt.cfg.map_capacity)
     return out
 
 
-def run_sharded(paths, ranks: int, device_type: str, workdir: str,
-                timeout_s: float = 600.0, backend: str | None = None,
-                sync_check: bool = True, map_shards: int = 0,
-                teacher: int | None = None) -> dict:
-    """Drive ``paths`` (``(path, steps)`` pairs) sharded over ``ranks``
-    spawned processes, rank ``r`` on card ``r`` modulo the cards (or the
-    CPU), over ``backend`` (default: the device's, see
-    :func:`init_process_group`), the group met through a ``file://``
-    rendezvous in ``workdir``.  Every process is killed after
-    ``timeout_s``.  ``map_shards`` and ``teacher``: see
-    :func:`_rank_main`.  Returns rank 0's :func:`drive_path` (or
-    :func:`teacher_path`) results by path."""
+def spawn_ranks(target, ranks: int, workdir: str, timeout_s: float,
+                args=()) -> None:
+    """Run ``target(rank, ranks, coordinator, *args)`` in ``ranks``
+    spawned processes, the group's ``coordinator`` a ``file://``
+    rendezvous in ``workdir``; every process is killed after
+    ``timeout_s``.  Raises when one fails or is killed."""
     ctx = multiprocessing.get_context("spawn")
     coordinator = "file://" + os.path.join(workdir, "rendezvous")
-    result_path = os.path.join(workdir, "sharded.pkl")
-    procs = [ctx.Process(target=_rank_main, args=(
-        r, ranks, coordinator, device_type, list(paths), workdir,
-        result_path, backend, sync_check, map_shards, teacher))
-        for r in range(ranks)]
+    procs = [ctx.Process(target=target,
+                         args=(r, ranks, coordinator, *args))
+             for r in range(ranks)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout_s
@@ -438,6 +435,41 @@ def run_sharded(paths, ranks: int, device_type: str, workdir: str,
         raise RuntimeError(f"sharded run failed: exit codes {codes}"
                            + (f", {len(late)} killed after {timeout_s} s"
                               if late else ""))
+
+
+def card_line() -> str:
+    """The cards' names and power limits as nvidia-smi reports them, a
+    line a card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+
+
+def rank_device(rank: int, device_type: str) -> torch.device:
+    """Rank ``rank``'s device: card ``rank`` modulo the cards, or the CPU
+    (one intra-op thread, as every rank shares the host)."""
+    if device_type == "cpu":
+        torch.set_num_threads(1)
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def run_sharded(paths, ranks: int, device_type: str, workdir: str,
+                timeout_s: float = 600.0, backend: str | None = None,
+                sync_check: bool = True, map_shards: int = 0,
+                teacher: int | None = None,
+                map_capacity: int | None = None) -> dict:
+    """Drive ``paths`` (``(path, steps)`` pairs) sharded over ``ranks``
+    spawned processes (:func:`spawn_ranks`), rank ``r`` on
+    :func:`rank_device`, over ``backend`` (default: the device's, see
+    :func:`init_process_group`).  ``map_shards``, ``teacher`` and
+    ``map_capacity``: see :func:`_rank_main`.  Returns rank 0's
+    :func:`drive_path` (or :func:`teacher_path`) results by path."""
+    result_path = os.path.join(workdir, "sharded.pkl")
+    spawn_ranks(_rank_main, ranks, workdir, timeout_s, (
+        device_type, list(paths), workdir, result_path, backend, sync_check,
+        map_shards, teacher, map_capacity))
     with open(result_path, "rb") as f:
         return pickle.load(f)
 
@@ -515,7 +547,8 @@ def compare(sharded: dict, plain: dict) -> dict:
 def compare_paths(paths, ranks: int, device_type: str,
                   timeout_s: float = 600.0, backend: str | None = None,
                   sync_check: bool = True, map_shards: int = 0,
-                  teacher: int | None = None) -> list[dict]:
+                  teacher: int | None = None,
+                  map_capacity: int | None = None) -> list[dict]:
     """Each path sharded over ``ranks`` processes (:func:`run_sharded`;
     with ``map_shards``, on the particles x map mesh) against its
     unsharded run in this process (on ``cuda:0`` or the CPU), one record
@@ -523,7 +556,8 @@ def compare_paths(paths, ranks: int, device_type: str,
     per step, bytes per step, steps/s sharded and unsharded, resamples,
     ancestors taken from another rank, and :func:`compare`'s checks.  With
     ``teacher`` the ranks run :func:`teacher_path` instead, and the record
-    holds its steps' checks (:func:`teacher_record`)."""
+    holds its steps' checks (:func:`teacher_record`).  ``map_capacity``:
+    the replay's maps that wide (:func:`setup`)."""
     device = torch.device("cuda", 0) if device_type == "cuda" else (
         torch.device("cpu"))
     if map_shards and any(path not in MAP_PATHS for path, _ in paths):
@@ -539,7 +573,8 @@ def compare_paths(paths, ranks: int, device_type: str,
     with tempfile.TemporaryDirectory() as workdir:
         prepare(paths, workdir)
         sharded = run_sharded(paths, ranks, device_type, workdir, timeout_s,
-                              backend, sync_check, map_shards, teacher)
+                              backend, sync_check, map_shards, teacher,
+                              map_capacity)
         records = []
         for path, steps in paths:
             sh = sharded[path]
@@ -547,11 +582,13 @@ def compare_paths(paths, ranks: int, device_type: str,
                     "devices": [str(device) if device_type == "cpu" else
                                 f"cuda:{r % torch.cuda.device_count()}"
                                 for r in range(ranks)], "steps": steps,
-                    "p_local": sh["p_local"]}
+                    "p_local": sh["p_local"],
+                    "map_capacity": sh["map_capacity"]}
             if teacher is not None:
                 records.append({**head, **teacher_record(sh, path, teacher)})
                 continue
-            plain = drive_path(path, steps, device, workdir)
+            plain = drive_path(path, steps, device, workdir,
+                               map_capacity=map_capacity)
             p_local = sh["p_local"]
             step = np.arange(sh["parent"].shape[1])
             moved = (sh["parent"] // p_local) != (step // p_local)[None, :]
@@ -617,6 +654,9 @@ def main(argv=None) -> int:
     ap.add_argument("--teacher-forced", type=int, default=None,
                     metavar="WARM", help="step each step from the unsharded "
                     "state, after WARM free steps")
+    ap.add_argument("--map-capacity", type=int, default=None,
+                    help="the replay's map slots (default: the bench "
+                         "filter's 128)")
     args = ap.parse_args(argv)
     if args.device == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -625,10 +665,7 @@ def main(argv=None) -> int:
                 f"{args.ranks} ranks need {args.ranks} GPUs, {have} found; "
                 f"pass --device cpu to run the ranks on the CPU (gloo)")
         # the cards every number below ran on
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], check=True, capture_output=True,
-            text=True).stdout.strip(), flush=True)
+        print(card_line(), flush=True)
     else:
         torch.set_num_threads(1)
     paths = [(p, args.steps) for p in (args.path or (
@@ -636,7 +673,8 @@ def main(argv=None) -> int:
     ok = True
     for rec in compare_paths(paths, args.ranks, args.device, args.timeout,
                              map_shards=args.map_shards,
-                             teacher=args.teacher_forced):
+                             teacher=args.teacher_forced,
+                             map_capacity=args.map_capacity):
         print(json.dumps(rec), flush=True)
         ok &= rec["ok"]
     return 0 if ok else 1

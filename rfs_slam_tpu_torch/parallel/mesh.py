@@ -37,8 +37,8 @@ map group (the ranks of one particle block): the map update's column sums
 and picks (``ops/kernels/map_update2d.py``'s block form), the eval points
 and intensity sums of importance weighting, and the map gathered whole for
 the steps over a global slot order (births' and new Gaussians'
-``replace_weakest``, merge).  The gathered map is bounded by the kernels'
-1,024 slots.
+``replace_weakest``, merge).  The gathered map takes any capacity: past
+1,024 slots the kernels run their large forms.
 
 ``parallel/dryrun.py`` drives the apps' paths sharded and holds them to the
 unsharded run.

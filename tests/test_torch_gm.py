@@ -113,17 +113,19 @@ def test_merge_twin_matches_jax_edges(rng, case):
 
 
 def test_launch_plan_fits_every_size():
-    """Every N up to MAX_SLOTS launches within Hopper's limits, with one
-    thread per slot."""
-    for N in range(1, merge2d_mod.MAX_SLOTS + 1):
-        threads, smem = merge2d_mod.launch_plan(200, N)
+    """Every N up to SMALL_SLOTS launches in the small form within Hopper's
+    limits, with one thread per slot (the large form's plans:
+    tests/test_torch_large_map.py)."""
+    for N in range(1, merge2d_mod.SMALL_SLOTS + 1):
+        threads, smem, form, workspace = merge2d_mod.launch_plan(200, N)
         assert threads % 32 == 0 and N <= threads <= 1024
-        assert smem <= 232_448
+        assert smem <= 232_448 and (form, workspace) == ("small", 0)
     assert merge2d_mod.launch_plan(200, 128) == (512, 4 * (12 * 128 + 128 * 4
-                                                           + 4))
+                                                           + 4), "small", 0)
 
 
-@pytest.mark.parametrize("P,N", [(200, 1025), (200, 0), (0, 128)])
+# 262,144 slots: a particle's mask past the kernel's 32-bit index
+@pytest.mark.parametrize("P,N", [(200, 1 << 18), (200, 0), (0, 128)])
 def test_launch_plan_rejects(P, N):
     with pytest.raises(ValueError):
         merge2d_mod.launch_plan(P, N)

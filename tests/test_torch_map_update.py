@@ -160,19 +160,22 @@ def test_twin_matches_pallas_kernel_edges(midrun, case):
 
 
 def test_launch_plan_fits_every_size():
-    """Every M up to MAX_SLOTS with Zc <= 64 launches within Hopper's
-    limits, and the bench shape holds its whole table at once."""
-    for M in range(1, mu.MAX_SLOTS + 1):
+    """Every M up to SMALL_SLOTS with Zc <= 64 launches in the small form
+    within Hopper's limits, and the bench shape holds its whole table at
+    once (the large form's plans: tests/test_torch_large_map.py)."""
+    for M in range(1, mu.SMALL_SLOTS + 1):
         for Zc in range(65):
-            threads, smem, zb = mu.launch_plan(200, M, Zc, 8)
+            threads, smem, zb, form, ws = mu.launch_plan(200, M, Zc, 8)
             assert threads % 32 == 0 and 32 <= threads <= mu.MAX_THREADS
-            assert smem <= 232_448
+            assert smem <= 232_448 and (form, ws) == ("small", 0)
             assert 1 <= zb <= max(Zc, 1)
     assert mu.launch_plan(200, 128, 40, 8) == (512, 4 * (120 + 10 * 128 + 4
-                                                         + 40 * 128), 40)
+                                                         + 40 * 128), 40,
+                                               "small", 0)
 
 
-@pytest.mark.parametrize("P,M,Zc", [(200, 1025, 40), (200, 0, 40),
+# 60,000 slots: one table column and the pick bits past shared memory
+@pytest.mark.parametrize("P,M,Zc", [(200, 60_000, 40), (200, 0, 40),
                                     (0, 128, 40), (200, 128, 60_000)])
 def test_launch_plan_rejects(P, M, Zc):
     with pytest.raises(ValueError):
@@ -182,7 +185,12 @@ def test_launch_plan_rejects(P, M, Zc):
 def test_twin_matches_xla_formulas(midrun):
     """The twin against the JAX package's XLA map-update head, verbatim
     from tests/test_map_update_fused.py."""
-    jfilt, filt, state, z, z_mask = midrun
+    assert_twin_matches_xla(*midrun)
+
+
+def assert_twin_matches_xla(jfilt, filt, state, z, z_mask):
+    """The twin on ``state`` against the XLA head's formulas of
+    tests/test_map_update_fused.py, with its tolerances."""
     cfg = filt.cfg
     js = jax_state(convert.to_numpy(state), jax.random.PRNGKey(0))
     gm, pose = js.gm, js.particles.pose
@@ -315,9 +323,13 @@ def test_block_form_picks_merge_by_the_kernel_rule():
 
 
 def test_block_launch_plan_fits_every_block():
-    """A block of M / B slots of every map the kernel takes (M <= 1,024,
-    B = 1, 2, 4, 8 where it divides M) meets the launch plan's limits."""
-    for M in range(8, mu.MAX_SLOTS + 1, 8):
+    """A block of M / B slots of every map up to 8,192 slots (B = 1, 2, 4,
+    8 where it divides M) meets the launch plan's limits, in the small
+    form up to SMALL_SLOTS slots a block and in the large form above."""
+    for M in range(8, 8192 + 1, 8):
         for B in (1, 2, 4, 8):
-            threads, smem, zb = mu.launch_plan(200, M // B, 40, 8)
-            assert 32 <= threads <= mu.MAX_THREADS and smem <= 232_448
+            plan = mu.launch_plan(200, M // B, 40, 8)
+            assert 32 <= plan.threads <= mu.MAX_THREADS
+            assert plan.smem <= 232_448
+            assert plan.form == ("small" if M // B <= mu.SMALL_SLOTS
+                                 else "large")

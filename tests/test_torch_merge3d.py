@@ -91,18 +91,20 @@ def test_merge3d_twin_chains_across_words_match_jax_merge(rng):
 
 
 def test_merge3d_launch_plan_fits_every_size():
-    """Every N up to MAX_SLOTS launches within Hopper's limits, with one
-    thread per slot; at N=512 the layout is 19 slot planes, a 512 x 16
-    word mask and 16 safe words."""
-    for N in range(1, merge3d_mod.MAX_SLOTS + 1):
-        threads, smem = merge3d_mod.launch_plan(100, N)
+    """Every N up to SMALL_SLOTS launches in the small form within Hopper's
+    limits, with one thread per slot; at N=512 the layout is 19 slot
+    planes, a 512 x 16 word mask and 16 safe words (the large form's
+    plans: tests/test_torch_large_map.py)."""
+    for N in range(1, merge3d_mod.SMALL_SLOTS + 1):
+        threads, smem, form, workspace = merge3d_mod.launch_plan(100, N)
         assert threads % 32 == 0 and N <= threads <= 1024
-        assert smem <= 232_448
+        assert smem <= 232_448 and (form, workspace) == ("small", 0)
     assert merge3d_mod.launch_plan(100, 512) == (
-        1024, 4 * (19 * 512 + 512 * 16 + 16))
+        1024, 4 * (19 * 512 + 512 * 16 + 16), "small", 0)
 
 
-@pytest.mark.parametrize("P,N", [(100, 1025), (100, 0), (0, 512)])
+# 262,144 slots: a particle's mask past the kernel's 32-bit index
+@pytest.mark.parametrize("P,N", [(100, 1 << 18), (100, 0), (0, 512)])
 def test_merge3d_launch_plan_rejects(P, N):
     with pytest.raises(ValueError):
         merge3d_mod.launch_plan(P, N)

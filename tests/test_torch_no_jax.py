@@ -41,7 +41,8 @@ SCRIPT = textwrap.dedent("""
                  "examples.linear_assignment_partition",
                  "examples.linear_assignment_lexicographic",
                  "examples.ospa_error", "examples.spatial_index",
-                 "parallel.mesh", "parallel.dryrun"):
+                 "parallel.mesh", "parallel.dryrun", "apps.example_step",
+                 "parallel.map_overflow_demo", "parallel.map_shard_bench"):
         assert "rfs_slam_tpu_torch." + name in names, name
 
     import torch
