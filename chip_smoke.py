@@ -150,7 +150,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    mode at P=64, M=8,192, Zc=16 for 20 steps under the sync debug mode,
    both 2-D kernels in their large form once a step, its peak device
    memory beside the JAX script's analytic figures, and each large form
-   timed at that shape; (4) the ``bl_dump`` replay with maps of 2,048
+   timed at that shape beside its bound (the merge's operations traced
+   a few particles at a time on the alive prefix), with the merge's
+   passes and workspace and the map update's own counts (its most table
+   slots of a particle, the particles whose stash went to the workspace,
+   the most table chunks); the padded states print the same counts; then
+   the large forms' times beside those recorded before their redesign;
+   (4) the ``bl_dump`` replay with maps of 2,048
    slots (P=200, Zc=40), its first 500 steps: launches, finite outputs,
    steps/s beside phase 5's and the median pose error (no gate); (5) 100
    frames of Victoria Park RB-PHD with maps of 2,048 slots, ``merge3d``'s
@@ -272,11 +278,20 @@ HUNGARIAN_FLOP_USED = 2
 # phase 16: the large forms (M or N above 1,024 slots)
 LARGE_TWIN_SHAPES = ((16, 1025, 40), (16, 2048, 40), (2, 8192, 16))
 LARGE_BLOCKS = (16, 4096, 2)   # P, M, blocks of the block form's check
+# P, N, half-width of the means: merge2d's gate fields in its workspace,
+# a few gated neighbours a slot (chains, several passes)
+LARGE_WS_TWIN = (1, 10_000, 40.0)
 LARGE_PAD = 2048               # the padded mid-run states' slots
 OVERFLOW = (64, 8192, 16, 20)  # P, M, Zc, steps: the overflow demo's shape
 LARGE_REPLAY = (2048, 500)     # map slots, steps of the bl_dump replay
 LARGE_VP = (2048, 100)         # map slots, frames of VP RB-PHD
 LARGE_MESH = (2048, 20, 20)    # map slots, free and teacher-forced steps
+MERGE_TRACE_CHUNK = 8          # particles a merge trace takes at a time
+# the large forms' times recorded before their redesign (phase 16 on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: padded to
+# LARGE_PAD slots, and at the overflow shape
+PARENT_LARGE_MS = {"map_update2d": (0.067808, 0.95731),
+                   "merge2d": (0.044768, 17.110), "merge3d": (0.044032, None)}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -356,40 +371,97 @@ def map_update_bound(args, out):
     return bound(nbytes(*ins) + nbytes(*outs), flop)
 
 
+def merge_tests(torch, gate, alive, first_i):
+    """The gate tests one merge pass needs on this input, per particle
+    [P]: a safe row (no gated alive partner below it) tests every alive
+    slot below it; an unsafe row one partner, then the safe slots below it
+    up to its claim (all of them where it claims none).  ``gate``,
+    ``first_i``: the twin's (``ops/gm.py::_merge_pairs``)."""
+    N = alive.shape[1]
+    safe = alive & ~gate.any(dim=1)
+    alive_below = torch.cumsum(alive, 1) - alive.long()
+    safe_upto = torch.cumsum(safe, 1)          # safe slots at or below
+    claims = torch.where(first_i < N,
+                         safe_upto.gather(1, first_i.clamp(max=N - 1)),
+                         safe_upto - safe.long())
+    tests = torch.where(safe, alive_below,
+                        torch.where(alive, 1 + claims, 0))
+    return tests.sum(dim=1).double()
+
+
 def merge_trace(gm_ops, gm, threshold, f_inflation, max_passes=8):
     """The passes of the merge fixpoint as the kernels run them, each
     particle until one of its passes merges nothing, counted with the
     twin's passes: per pass, (the particles still running [P], their alive
-    slots [P], the pairs each merged [P])."""
+    slots [P], the pairs each merged [P], the gate tests it needs [P],
+    :func:`merge_tests`)."""
+    import torch
+
     t2 = threshold * threshold
     active = gm.alive.new_ones(gm.alive.shape[0])
     trace = []
     for _ in range(max_passes):
         a = gm.alive.sum(dim=1).double()
+        gate, first_i, _ = gm_ops._merge_pairs(gm, t2)
+        tests = merge_tests(torch, gate, gm.alive, first_i)
+        del gate
         gm, _ = gm_ops._merge_pass(gm, t2, f_inflation)
         merged = a - gm.alive.sum(dim=1).double()
-        trace.append((active, a, merged * active))
+        trace.append((active, a, merged * active, tests))
         active = active & (merged > 0)
         if not bool(active.any()):
             break
     return trace
 
 
+def alive_prefix(torch, gm, p0, p1):
+    """Particles ``p0 .. p1 - 1`` of a compacted mixture, cut after its
+    highest alive slot: the same passes and merges as on every slot, with
+    pair cubes of that size only."""
+    part = type(gm)(gm.mean[:, p0:p1], gm.cov[:, p0:p1], gm.w[p0:p1],
+                    gm.w_prev[p0:p1], gm.alive[p0:p1])
+    n = int(torch.nonzero(part.alive.any(dim=0)).max()) + 1 if bool(
+        part.alive.any()) else 1
+    return type(gm)(part.mean[..., :n], part.cov[..., :n], part.w[:, :n],
+                    part.w_prev[:, :n], part.alive[:, :n])
+
+
+def merge_passes(gm_ops, gm, threshold, f_inflation, chunk):
+    """The most passes a particle's fixpoint runs (:func:`merge_trace`,
+    ``chunk`` particles at a time on their alive prefix)."""
+    import torch
+
+    return max(len(merge_trace(gm_ops, alive_prefix(torch, gm, p0,
+                                                    p0 + chunk),
+                               threshold, f_inflation))
+               for p0 in range(0, gm.w.shape[0], chunk))
+
+
 def merge_bound(gm_ops, gm, out, threshold, f_inflation, inv_flop,
-                merge_flop):
+                merge_flop, chunk=None):
     """Every plane read once and written once; the operations of this
     input's passes (:func:`merge_trace`): each pass inverts its alive
-    slots' covariances, gate-tests every pair of its alive slots once and
-    merges its pairs.  A pair's two-way gate needs the D subtractions of
-    v = mu_j - mu_k, the T = D(D+1)/2 products of v's entries (shared by
-    both quadratic forms) and, per form, T multiplies and T - 1 adds: 31
-    FLOP at D=3, 15 at D=2 (its two comparisons are not counted)."""
+    slots' covariances, makes the gate tests the pass needs
+    (:func:`merge_tests`: a search that stops at its first hit needs far
+    fewer than every pair where much merges) and merges its pairs.  A
+    pair's two-way gate needs the D subtractions of v = mu_j - mu_k, the T
+    = D(D+1)/2 products of v's entries (shared by both quadratic forms)
+    and, per form, T multiplies and T - 1 adds: 31 FLOP at D=3, 15 at D=2
+    (its two comparisons are not counted).  ``chunk``: trace that many
+    particles at a time on their alive prefix (:func:`alive_prefix`), for
+    inputs whose pair cubes would not fit."""
+    import torch
+
     tri = gm.dim * (gm.dim + 1) // 2
     pair_flop = gm.dim + tri + 2 * (2 * tri - 1)
-    flop = sum(float((active * (a * inv_flop + a * (a - 1) / 2 * pair_flop
+    P = gm.w.shape[0]
+    step = chunk or P
+    flop = sum(float((active * (a * inv_flop + tests * pair_flop
                                 + merged * merge_flop)).sum())
-               for active, a, merged in merge_trace(gm_ops, gm, threshold,
-                                                    f_inflation))
+               for p0 in range(0, P, step)
+               for active, a, merged, tests in merge_trace(
+                   gm_ops, gm if chunk is None else alive_prefix(
+                       torch, gm, p0, p0 + step), threshold, f_inflation))
     planes = [gm.mean, gm.cov, gm.w, gm.w_prev, gm.alive]
     out_planes = [out.mean, out.cov, out.w, out.w_prev, out.alive]
     return bound(nbytes(*planes) + nbytes(*out_planes), flop)
@@ -596,10 +668,11 @@ def check_map_update_block(torch, mu, filt, state, z, z_mask):
     return max(errs), ms, plain_ms
 
 
-def random_mixtures(torch, GMState, rng, P, N, dev, n_alive=(20, 120)):
+def random_mixtures(torch, GMState, rng, P, N, dev, n_alive=(20, 120),
+                    spread=3.0):
     """Random D=2 mixtures, ``n_alive`` alive slots per particle (20-120),
-    alive first."""
-    mean = rng.uniform(-3, 3, size=(P, N, 2)).astype(np.float32)
+    alive first, their means in a square of half-width ``spread``."""
+    mean = rng.uniform(-spread, spread, size=(P, N, 2)).astype(np.float32)
     A = rng.normal(size=(P, N, 2, 2)).astype(np.float32) * 0.2
     cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(2, dtype=np.float32)
     w = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
@@ -805,8 +878,8 @@ def time_merge3d(torch, m3, gm_ops, filt, gm, err):
                                "median": float(np.median(alive)),
                                "max": int(alive.max())},
         "passes_max": len(trace),
-        "passes_total": int(sum(float(a.sum()) for a, _, _ in trace)),
-        "pairs_merged": int(sum(float(m.sum()) for _, _, m in trace))}),
+        "passes_total": int(sum(float(a.sum()) for a, *_ in trace)),
+        "pairs_merged": int(sum(float(m.sum()) for _, _, m, _ in trace))}),
         flush=True)
     return (max(err, case_err), *kernel_vs_twin_ms(
         torch, "merge3d", lambda: m3.merge3d(gm, thr, infl),
@@ -1686,9 +1759,13 @@ def assert_bit_equal(torch, name, small, large, fields, n):
 def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
     """Phase 16.1: each large form against its twin on random states
     (M or N = 1,025 and 2,048 at P=16, 8,192 at P=2; the merges also with
-    every slot alive at N=2,048, so that several passes run) and the block
-    form as head and tail on 2 blocks of 2,048 of M=4,096, against its
-    twin and the one launch.  Returns the largest error of each kernel."""
+    every slot alive at N=2,048, so that several passes run; merge2d also
+    past 9,535 slots, LARGE_WS_TWIN, where its gate fields go to the
+    workspace) and the block form as head and tail on 2 blocks of 2,048
+    of M=4,096, against its twin and the one launch.  Returns the largest
+    error of each kernel."""
+    from rfs_slam_tpu_torch.ops.kernels import build
+
     rng = np.random.default_rng(16)
     errs = {"map_update2d": [], "merge2d": [], "merge3d": []}
     params = filt._map_params
@@ -1700,7 +1777,8 @@ def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
         errs["map_update2d"].append(err)
         print(f"map_update2d large form == twin at P={P}, M={M}, Zc={Zc} "
               f"({int(a[8].sum())} alive slots, {int(nz.sum())} picks; max "
-              f"abs error {err:.3g}; {mu.launch_plan(P, M, Zc, 8)})",
+              f"abs error {err:.3g}; "
+              f"{mu.launch_plan(P, M, Zc, 8, build.sm_count(dev))})",
               flush=True)
         n_alive = (M // 2, M)
         errs["merge2d"].append(compare_merge2d(
@@ -1716,6 +1794,14 @@ def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
     errs["merge3d"].append(compare_merge3d(
         torch, m3, f"all alive N={N}", random_mixtures3(
             torch, GMState, rng, 16, N, dev, (N, N)), 1.5, 1.5)[1])
+    P, N, spread = LARGE_WS_TWIN
+    plan = mg.launch_plan(P, N)
+    if plan.workspace == 0:
+        raise AssertionError(f"merge2d: N={N} keeps all in shared memory")
+    errs["merge2d"].append(compare_merge2d(
+        torch, mg, f"large N={N}, gate fields in a {plan.workspace} B "
+        f"workspace", random_mixtures(torch, GMState, rng, P, N, dev,
+                                      (N - N // 8, N), spread), 1.5, 1.5)[1])
     P, M, B = LARGE_BLOCKS
     a = large_map_inputs(torch, rng, params, P, M, 40, dev)
     k = mu.map_update2d_blocks(*a, n_blocks=B)
@@ -1772,7 +1858,12 @@ def check_padding(torch, mu, mg, m3, gm_ops, filt, state, z, z_mask,
         lambda: mu.map_update2d_plain(*padded)),
         *map_update_bound(padded, large))
     small_ms = cuda_ms(torch, lambda: mu.fused_map_update2d(*args))
+    stats = torch.zeros(3, dtype=torch.int32, device=state.gm.w.device)
+    mu.fused_map_update2d(*padded, stats=stats)
     print(json.dumps({"padded": "map_update2d", "slots": [M, n],
+                      "ntab_max": int(stats[0]),
+                      "stash_in_workspace": int(stats[1]),
+                      "chunks_max": int(stats[2]),
                       "positive_picks": int(pos.sum()), "bit_equal": True,
                       "small_ms": small_ms, "large_ms": rows[
                           "map_update2d"][1],
@@ -1802,9 +1893,13 @@ def check_padding(torch, mu, mg, m3, gm_ops, filt, state, z, z_mask,
             torch, f"{name} large form (padded to {n})",
             lambda: kern(gp, thr, infl), lambda: twin(gp, thr, infl)),
             *merge_bound(gm_ops, gp, kl, thr, infl, inv_flop=inv_flop,
-                         merge_flop=merge_flop))
+                         merge_flop=merge_flop, chunk=gp.w.shape[0]))
         print(json.dumps({"padded": name, "slots": [g.capacity, n],
                           "alive": int(g.alive.sum()), "bit_equal": True,
+                          "passes": merge_passes(gm_ops, gp, thr, infl,
+                                                 gp.w.shape[0]),
+                          "workspace_bytes": (mg if name == "merge2d" else m3)
+                          .launch_plan(*gp.w.shape).workspace,
                           "small_ms": cuda_ms(torch, lambda: kern(g, thr,
                                                                   infl)),
                           "large_ms": rows[name][1],
@@ -1821,12 +1916,14 @@ def overflow_phase(torch, mu, mg, gm_ops, card, dev):
     example state at that shape.  Returns ``{kernel: (launches, ms)}``,
     the launches as the run's large-form counters read them."""
     from rfs_slam_tpu_torch.apps import example_step as ex
+    from rfs_slam_tpu_torch.ops.kernels import build
     from rfs_slam_tpu_torch.parallel import map_overflow_demo as demo
 
     P, M, Zc, steps = OVERFLOW
+    sms = build.sm_count(dev)
     rec = {"overflow": "map_overflow_demo card", "card": card,
            "analytic": demo.analytic(P, M, Zc),
-           "forms": demo.forms(P, M, Zc),
+           "forms": demo.forms(P, M, Zc, sms=sms),
            **demo.run_card(P, M, Zc, steps, dev)}
     rec["median_ms_per_step"] = statistics.median(rec["ms_per_step"])
     print(json.dumps(rec), flush=True)
@@ -1854,12 +1951,28 @@ def overflow_phase(torch, mu, mg, gm_ops, card, dev):
               *args), n=5),
           "merge2d": cuda_ms(torch, lambda: mg.merge2d(merge_in, thr, infl),
                              n=5)}
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    out = mu.fused_map_update2d(*args, stats=stats)
+    merged = mg.merge2d(merge_in, thr, infl)
+    bounds = {"map_update2d": map_update_bound(args, out),
+              "merge2d": merge_bound(gm_ops, merge_in, merged, thr, infl,
+                                     inv_flop=7, merge_flop=30,
+                                     chunk=MERGE_TRACE_CHUNK)}
+    passes = merge_passes(gm_ops, merge_in, thr, infl, MERGE_TRACE_CHUNK)
     print(json.dumps({"overflow_kernel_ms": ms, "card": card,
+                      "bound_ms": {k: b[0] for k, b in bounds.items()},
                       "merge_input_alive": int(merge_in.alive.sum()),
-                      "map_update_bound_ms": map_update_bound(
-                          args, mu.fused_map_update2d(*args))[0]}),
+                      "merge_alive_after": int(merged.alive.sum()),
+                      "merge_passes": passes,
+                      "merge_workspace_bytes": mg.launch_plan(P, M).workspace,
+                      "map_update_ntab_max": int(stats[0]),
+                      "map_update_stash_in_workspace": int(stats[1]),
+                      "map_update_chunks_max": int(stats[2]),
+                      "map_update_workspace_bytes": mu.launch_plan(
+                          P, M, Zc, args[12], sms).workspace}),
           flush=True)
-    return {k: (rec["large_launches"][k], v) for k, v in ms.items()}
+    return {k: (rec["large_launches"][k], v, bounds[k][0])
+            for k, v in ms.items()}
 
 
 def large_paths_phase(torch, app, loop, vp_app, mu, mg, m3, dev, sim_cfg,
@@ -2179,6 +2292,11 @@ def main(argv=None) -> int:
         replay_steps_per_s,
         vp_icov, vp_cfg, stream)
     large_mesh_phase(torch)
+    print(json.dumps({"large_rows_ms": {
+        k: {"padded": large_rows[k][1],
+            "overflow": overflow.get(k, (0, None))[1],
+            "before_redesign": PARENT_LARGE_MS[k]} for k in large_rows},
+        "card": card}), flush=True)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
     # the accuracy of phases 7-8 (checked once every phase has printed):
@@ -2235,7 +2353,8 @@ def main(argv=None) -> int:
     # the large forms (phase 16): timed on the padded mid-run states and at
     # the overflow shape; launches in the large-map paths (16.4-16.5), and
     # apart from them those of the overflow run (16.3)
-    plans = {"map_update2d": mu.launch_plan(*OVERFLOW[:3], 8),
+    plans = {"map_update2d": mu.launch_plan(*OVERFLOW[:3], 8,
+                                            build.sm_count(dev)),
              "merge2d": mg.launch_plan(*OVERFLOW[:2]),
              "merge3d": m3.launch_plan(100, LARGE_VP[0])}
     for name, jax_fn in (("map_update2d", "ops/pallas/map_update2d.py:309"),
@@ -2253,6 +2372,7 @@ def main(argv=None) -> int:
             "floor_ms": floor_ms, "library_ms": None,
             "shape": f"padded to {LARGE_PAD} slots",
             "overflow_ms": overflow.get(name, (0, None))[1],
+            "overflow_bound_ms": overflow.get(name, (0, None, None))[2],
             "workspace_bytes": plans[name].workspace})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -45,7 +45,7 @@
 //   4. each slot sums its table row in column order (the first port's
 //      order), then the missed-detection weights.
 // The table is held in chunks of ZB columns (all Zc at bench shape), so
-// the table's shared memory stays bounded at any M.  The arithmetic is the
+// shared memory stays bounded for any M <= 1024.  The arithmetic is the
 // first port's expression for expression (pd * w * lik is (pd * w) * lik,
 // the column sums in its order), so nvcc contracts it as it did and every
 // output rounds as the first port's; a zero divided by the column sum is
@@ -64,16 +64,36 @@
 // unused flags, its top T with the slot numbers offset by m_off, and the
 // missed-detection weights.  kWhole is the one-launch form, unchanged.
 //
-// Large form (M > 1024, every mode; kLarge): in the small form a lane's
-// table bits are one 32-bit word (bit r: slot lane + 32 r), and so are its
-// picks' bits in column(), which bounds M at 32 x 32.  The large form reads
-// a slot's table bit from the shared words s_tabw (bit lane of word r: the
-// same bit) and keeps the picks' bits in lane-private shared words; the
-// per-slot stash stays in shared memory while it fits (M up to ~3,300 at
-// Zc=40) and moves to a global workspace past that (launch_plan).  Every
-// statement of arithmetic and every loop order is the small form's, so the
-// column sums add the table's slots in the same order and a map padded
-// with dead slots gives the small form's bits on its slots.
+// Large form (M > 1024, every mode; map_update2d_large): the small form's
+// loops over all M slots (a lane's table and pick bits in one word, the
+// row sums and the argmax rounds over every slot, nth_set from word 0) cost
+// what M costs, though only the table's slots can hold a nonzero cell (23
+// of 2,048 on the padded replay state).  The large form works on a list of
+// the table's slots, interleaved by lane: entry 32 i + L is lane L's i-th
+// slot in the table among L, L + 32, ..., ascending.  A lane adds its
+// column entries in the small form's order and the shuffle tree is the
+// same: the same bits; a warp's accesses are 32 consecutive words.  The
+// list has 32 x (the most slots a lane has) entries, the others holes,
+// at most 32 ceil(M / 32).
+//   1a. a warp takes a run of consecutive slot words: the table bits (and
+//       the bits of the alive, close slots outside it), and per lane the
+//       count; a lane's place in the list sums the warps' counts before;
+//   1b. the same runs again: the per-slot algebra and the plane outputs;
+//       the stash (11 planes) only for the table's slots, at their place in
+//       the list.  Outside the table a slot's row sum is the fold of the
+//       columns' entry there (0 / col_sum: a zero, or NaN where a column sum
+//       is zero or NaN), so its missed-detection weight is final here for a
+//       zero fold; the few that a NaN fold changes (alive, close, outside
+//       the table) are rewritten at the end;
+//   2-4. as the small form over the list: the table [Zc, entries] (in one
+//       chunk whenever it fits), a warp a column (the sum, normalisation,
+//       the unused flag; the picks by rounds over the positive entries in
+//       order, then the small form's repeated pick, the slots outside the
+//       table counted in as one class), the row sums and the weights.
+// Shared memory is sized by launch_plan for a list of 32 ceil(M / 32).
+// Where the stash does not fit beside the whole table, and the plan gave a
+// workspace, the stash goes to this particle's part of it and the table
+// takes the rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,14 +171,145 @@ __device__ __forceinline__ int nth_set(const unsigned* words, int q) {
   return pos;
 }
 
-// Whether slot lane + 32 r is in the table: bit r of the lane's tabmask
-// (small form), or bit lane of the table's bit word r (large form).
-template <bool kLarge>
-__device__ __forceinline__ bool in_table(unsigned tabmask,
-                                         const unsigned* tabw, int lane,
-                                         int r) {
-  if constexpr (kLarge) return (tabw[r] >> lane) & 1u;
-  return (tabmask >> r) & 1u;
+// the first slot from `from` on (below M) whose bit is clear, else M
+__device__ __forceinline__ int next_unset(const unsigned* words, int from,
+                                          int M) {
+  for (int r = from >> 5; 32 * r < M; ++r) {
+    unsigned free = ~words[r];
+    if (r == from >> 5) free &= ~0u << (from & 31);
+    if (free) return min(32 * r + __ffs(free) - 1, M);
+  }
+  return M;
+}
+
+// Range and Pd of a slot (RangeBearing.measure_p, RBPHDFilter.hpp:597-609)
+struct SlotRange {
+  float dx, dy, r2, r, pd;
+  bool mvalid, close;
+};
+
+__device__ __forceinline__ SlotRange slot_range(const Params& prm, float px,
+                                                float py, float vx, float vy,
+                                                bool alv) {
+  SlotRange s;
+  s.dx = vx - px;
+  s.dy = vy - py;
+  s.r2 = s.dx * s.dx + s.dy * s.dy;
+  s.r = sqrtf(s.r2);
+  // Pd with the close-to-limit buffer (RBPHDFilter.hpp:597-609)
+  s.mvalid = (s.r <= prm.r_max) && (s.r >= prm.r_min);
+  const bool near_inner = s.mvalid && ((s.r >= prm.r_max - prm.r_buf) ||
+                                       (s.r <= prm.r_min + prm.r_buf));
+  const bool near_outer = !s.mvalid && (s.r <= prm.r_max + prm.r_buf) &&
+                          (s.r >= prm.r_min - prm.r_buf);
+  s.close = (near_inner || near_outer) && alv;
+  s.pd = s.close ? 1.0f : ((s.mvalid && alv) ? prm.pd_const : 0.0f);
+  return s;
+}
+
+// The per-slot algebra of phase 1: the expected measurement and Jacobian,
+// S, its inverse, the scrubbed gain and the symmetrized update
+struct SlotEkf {
+  SlotRange s;
+  float b, i00, i01, i11, norm, k00, k01, k10, k11, u00, u01s, u11;
+};
+
+__device__ __forceinline__ SlotEkf slot_ekf(const Params& prm, float px,
+                                            float py, float pth, float vx,
+                                            float vy, float s00c, float s01c,
+                                            float s11c, bool alv) {
+  SlotEkf e;
+  e.s = slot_range(prm, px, py, vx, vy, alv);
+  const float dx = e.s.dx, dy = e.s.dy, r2 = e.s.r2;
+
+  // expected measurement + Jacobian (RangeBearing.measure_p)
+  e.b = wrap_angle(atan2f(dy, dx) - pth);
+  const float r2s = fmaxf(r2, 1e-24f);
+  const float rs = sqrtf(r2s);
+  const float h00 = dx / rs, h01 = dy / rs;
+  const float h10 = -dy / r2s, h11 = dx / r2s;
+
+  // S = H C H^T + R, its determinant and inverse
+  const float hs00 = h00 * s00c + h01 * s01c;
+  const float hs01 = h00 * s01c + h01 * s11c;
+  const float hs10 = h10 * s00c + h11 * s01c;
+  const float hs11 = h10 * s01c + h11 * s11c;
+  const float s00 = hs00 * h00 + hs01 * h01 + prm.R00;
+  const float s01 = hs00 * h10 + hs01 * h11 + prm.R01;
+  const float s11 = hs10 * h10 + hs11 * h11 + prm.R11;
+  const float det = s00 * s11 - s01 * s01;
+  e.i00 = s11 / det;
+  e.i01 = -s01 / det;
+  e.i11 = s00 / det;
+  e.norm = sqrtf(kTwoPiSq * det);
+
+  // K = C H^T S^-1, non-finite entries scrubbed (KalmanFilter.hpp:253-254)
+  const float cht00 = s00c * h00 + s01c * h01;
+  const float cht01 = s00c * h10 + s01c * h11;
+  const float cht10 = s01c * h00 + s11c * h01;
+  const float cht11 = s01c * h10 + s11c * h11;
+  e.k00 = finite_or_zero(cht00 * e.i00 + cht01 * e.i01);
+  e.k01 = finite_or_zero(cht00 * e.i01 + cht01 * e.i11);
+  e.k10 = finite_or_zero(cht10 * e.i00 + cht11 * e.i01);
+  e.k11 = finite_or_zero(cht10 * e.i01 + cht11 * e.i11);
+
+  // (I - K H) C, symmetrized (KalmanFilter.hpp:240-245)
+  const float a00 = 1.0f - (e.k00 * h00 + e.k01 * h10);
+  const float a01 = -(e.k00 * h01 + e.k01 * h11);
+  const float a10 = -(e.k10 * h00 + e.k11 * h10);
+  const float a11 = 1.0f - (e.k10 * h01 + e.k11 * h11);
+  e.u00 = a00 * s00c + a01 * s01c;
+  const float u01 = a00 * s01c + a01 * s11c;
+  const float u10 = a10 * s00c + a11 * s01c;
+  e.u11 = a10 * s01c + a11 * s11c;
+  e.u01s = 0.5f * (u01 + u10);
+  return e;
+}
+
+// planes 1-11 of out (w_prev, pd, K, cov_upd, z_exp) for slot pm
+__device__ __forceinline__ void write_planes(float* out, size_t PM, size_t pm,
+                                             const SlotEkf& e, float wp) {
+  out[PM + pm] = wp;
+  out[2 * PM + pm] = e.s.pd;
+  out[3 * PM + pm] = e.k00;
+  out[4 * PM + pm] = e.k01;
+  out[5 * PM + pm] = e.k10;
+  out[6 * PM + pm] = e.k11;
+  out[7 * PM + pm] = e.u00;
+  out[8 * PM + pm] = e.u01s;
+  out[9 * PM + pm] = e.u11;
+  out[10 * PM + pm] = e.s.r;
+  out[11 * PM + pm] = e.b;
+}
+
+// one cell of the gated weight table (RBPHDFilter.hpp:620-659)
+__device__ __forceinline__ float cell_weight(const Params& prm, float zr,
+                                             float zb, bool zm, float r,
+                                             float b, float i00, float i01,
+                                             float i11, float norm, float pd,
+                                             float wv) {
+  float v = 0.f;
+  if (zm) {
+    const float ir = zr - r;
+    const float ib = wrap_angle(zb - b);
+    const bool gate_ok = (prm.t_r <= 0.f || fabsf(ir) <= prm.t_r) &&
+                         (prm.t_b <= 0.f || fabsf(ib) <= prm.t_b);
+    const float md2 = i00 * ir * ir + 2.0f * i01 * ir * ib + i11 * ib * ib;
+    const float lik = finite_or_zero(expf(-0.5f * md2) / norm);
+    if (gate_ok && md2 <= prm.md_t2 && lik > 0.f) v = pd * wv * lik;
+  }
+  return v;
+}
+
+// the missed-detection weight of a slot with flags f from its table row's
+// sum (RBPHDFilter.hpp:686-706)
+__device__ __forceinline__ float missed_weight(int f, float pd, float wv,
+                                               float row, float birth_w) {
+  float w_miss = (1.0f - pd) * wv;
+  const float delta = pd * wv - row;
+  if ((f & kClose) && wv > birth_w && delta > 0.f)
+    w_miss = fminf(w_miss + delta, 1.0f);
+  return (f & kAlive) ? w_miss : wv;
 }
 
 // One argmax round over the warp: the largest key and the lowest index
@@ -173,16 +324,13 @@ __device__ __forceinline__ void warp_first_argmax(unsigned best, int bi,
 // Phase 3 for one column (a warp) over all M slots, where
 // column_compact() does not apply: sum, normalise in place, unused flag,
 // T rounds of first-argmax over the column reread from shared memory.
-// Bit r of tabmask: slot lane + 32 r is in the table (in_table); the
-// others' entries are zero and were not written this chunk.
+// Bit r of tabmask: slot lane + 32 r is in the table; the others' entries
+// are zero and were not written this chunk.
 // kTail: the column sum is given (cs_given, clutter included) and the
 // picked slot numbers are offset by m_off.
-// kLarge: the picks' bits are the lane's words of taken (bit r % 32 of
-// word (r / 32) * 32 + lane), ceil(M / 1024) * 32 words for the warp.
-template <int kMode, bool kLarge>
-__device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
-                       unsigned* taken_w, int M, int T, int Zc, int k,
-                       bool zm, float clutter, int lane, size_t p,
+template <int kMode>
+__device__ void column(float* col, unsigned tabmask, int M, int T, int Zc,
+                       int k, bool zm, float clutter, int lane, size_t p,
                        float* colsum_out, bool* unused_out, float* cand_w,
                        int64_t* cand_m, float cs_given, int m_off) {
   float c;
@@ -191,14 +339,14 @@ __device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
   } else {
     float s = 0.f;
     for (int j = lane, r = 0; j < M; j += 32, ++r)
-      if (in_table<kLarge>(tabmask, tabw, lane, r)) s += col[j];
+      if ((tabmask >> r) & 1u) s += col[j];
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(kFull, s, off);
     c = clutter + s;
   }
   bool any = false;
   for (int j = lane, r = 0; j < M; j += 32, ++r) {
-    const float v = in_table<kLarge>(tabmask, tabw, lane, r) ? col[j] : 0.f;
+    const float v = (tabmask >> r) & 1u ? col[j] : 0.f;
     const float x = zm ? div_nz(v, c) : 0.f;
     any |= x > 0.f;
     col[j] = x;
@@ -210,18 +358,11 @@ __device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
   }
 
   unsigned taken = 0;  // bit r set once entry lane + 32 r is picked
-  if constexpr (kLarge)
-    for (int q = lane; q < 32 * ((M + 1023) >> 10); q += 32) taken_w[q] = 0;
   for (int t = 0; t < T; ++t) {
     unsigned best = kPadKey;
     int bi = M;
     for (int j = lane, r = 0; j < M; j += 32, ++r) {
-      bool picked;
-      if constexpr (kLarge)
-        picked = (taken_w[(r >> 5) * 32 + lane] >> (r & 31)) & 1u;
-      else
-        picked = (taken >> r) & 1u;
-      const unsigned kj = picked ? kZeroKey : order_key(col[j]);
+      const unsigned kj = (taken >> r) & 1u ? kZeroKey : order_key(col[j]);
       if (kj > best) { best = kj; bi = j; }
     }
     unsigned g, idx;
@@ -231,13 +372,8 @@ __device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
       cand_w[o] = key_value(g);
       cand_m[o] = min(static_cast<int>(idx), M - 1) + m_off;
     }
-    if (idx < static_cast<unsigned>(M) && lane == static_cast<int>(idx & 31)) {
-      const int r = idx >> 5;
-      if constexpr (kLarge)
-        taken_w[(r >> 5) * 32 + lane] |= 1u << (r & 31);
-      else
-        taken |= 1u << r;
-    }
+    if (idx < static_cast<unsigned>(M) && lane == static_cast<int>(idx & 31))
+      taken |= 1u << (idx >> 5);
   }
 }
 
@@ -247,10 +383,9 @@ __device__ void column(float* col, unsigned tabmask, const unsigned* tabw,
 // zero.  Same results as column() but on ceil(ntab / 32) entries a lane.
 // Returns false, having written nothing, when an entry is negative or NaN:
 // then the T rounds may pick zeros outside the table, and column() runs.
-template <int CR, int kMode, bool kLarge>
+template <int CR, int kMode>
 __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
-                               const unsigned* tabw, int M, int T, int Zc,
-                               int k, bool zm,
+                               int M, int T, int Zc, int k, bool zm,
                                float clutter, int lane, size_t p,
                                float* colsum_out, bool* unused_out,
                                float* cand_w, int64_t* cand_m,
@@ -264,7 +399,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
     // nothing)
     float s = 0.f;
     for (int j = lane, r = 0; j < M; j += 32, ++r)
-      if (in_table<kLarge>(tabmask, tabw, lane, r)) s += col[j];
+      if ((tabmask >> r) & 1u) s += col[j];
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(kFull, s, off);
     cs = clutter + s;
@@ -287,7 +422,7 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
   for (int c = 0; c < CR; ++c)
     if (sm[c] >= 0) col[sm[c]] = x[c];
   for (int j = lane, r = 0; j < M; j += 32, ++r)
-    if (!in_table<kLarge>(tabmask, tabw, lane, r)) col[j] = xz;
+    if (!((tabmask >> r) & 1u)) col[j] = xz;
   if (lane == 0) {
     if constexpr (kMode == kWhole) colsum_out[p * Zc + k] = cs;
     unused_out[p * Zc + k] = zm && !any;
@@ -357,10 +492,9 @@ __device__ bool column_compact(float* col, const int* sm, unsigned tabmask,
 
 // at most 64 registers a thread, so two 512-thread CTAs fit on an SM and
 // all 200 particles of the bench shape run in one wave on 132 SMs
-template <int kMode, bool kLarge>
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     Params prm, int M, int Zc, int T, int ZB, int m_off,
-    float* __restrict__ stash,
     const float* __restrict__ colsum_in,
     const float* __restrict__ pose, const float* __restrict__ mx,
     const float* __restrict__ my, const float* __restrict__ c00,
@@ -371,16 +505,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     bool* __restrict__ unused_out, int64_t* __restrict__ cand_m) {
   // shared memory: z [Zc, 2], z mask [Zc], 10 slot planes [M], the bit
   // words of the slots in the table [W = ceil(M / 32)], the table chunk
-  // [ZB, M], and in the large form the warps' pick bits [warps, 32 *
-  // ceil(M / 1024)] (the wrapper's launch_plan sizes it the same way).  A
-  // large form given a stash keeps the 10 slot planes there instead, at
-  // this particle's [10, M].
+  // [ZB, M] (the wrapper's launch_plan sizes it the same way)
   extern __shared__ float smem[];
   float* s_z = smem;
   int* s_zm = reinterpret_cast<int*>(s_z + 2 * Zc);
-  const bool in_global = kLarge && stash != nullptr;
-  float* s_r = in_global ? stash + blockIdx.x * static_cast<size_t>(10 * M)
-                         : reinterpret_cast<float*>(s_zm + Zc);
+  float* s_r = reinterpret_cast<float*>(s_zm + Zc);
   float* s_b = s_r + M;
   float* s_i00 = s_b + M;
   float* s_i01 = s_i00 + M;
@@ -390,11 +519,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   float* s_w = s_pd + M;
   float* s_row = s_w + M;      // row sums of the normalised table
   int* s_flag = reinterpret_cast<int*>(s_row + M);
-  unsigned* s_tabw = reinterpret_cast<unsigned*>(
-      in_global ? reinterpret_cast<float*>(s_zm + Zc)
-                : reinterpret_cast<float*>(s_flag + M));  // [W]
+  unsigned* s_tabw = reinterpret_cast<unsigned*>(s_flag + M);  // [W]
   float* tab = reinterpret_cast<float*>(s_tabw + (M + 31) / 32);
-  unsigned* s_taken = reinterpret_cast<unsigned*>(tab + ZB * M);
 
   // output planes, each [P, M], then col_sum [P, Zc] and cand_w [P, T*Zc];
   // kHead writes the planes but w and the column sums without clutter,
@@ -402,17 +528,6 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   const int P = gridDim.x;
   const size_t PM = static_cast<size_t>(P) * M;
   float* w_out = out;
-  float* wp_out = out + PM;
-  float* pd_out = out + 2 * PM;
-  float* k00_out = out + 3 * PM;
-  float* k01_out = out + 4 * PM;
-  float* k10_out = out + 5 * PM;
-  float* k11_out = out + 6 * PM;
-  float* cu00_out = out + 7 * PM;
-  float* cu01_out = out + 8 * PM;
-  float* cu11_out = out + 9 * PM;
-  float* zer_out = out + 10 * PM;
-  float* zeb_out = out + 11 * PM;
   float* colsum_out = out + 12 * PM;
   float* cand_w = kMode == kTail ? out + PM
                                  : colsum_out + static_cast<size_t>(P) * Zc;
@@ -437,90 +552,26 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
     bool in_table = false;
     if (m < M) {
       const size_t pm = p * M + m;
-      const float vx = mx[pm], vy = my[pm];
-      const float s00c = c00[pm], s01c = c01[pm], s11c = c11[pm];
       const float wv = w[pm];
       const bool alv = alive[pm];
+      const SlotEkf e = slot_ekf(prm, px, py, pth, mx[pm], my[pm], c00[pm],
+                                 c01[pm], c11[pm], alv);
+      if constexpr (kMode != kTail)
+        write_planes(out, PM, pm, e, alv ? wv : w_prev[pm]);
 
-      // expected measurement + Jacobian (RangeBearing.measure_p)
-      const float dx = vx - px, dy = vy - py;
-      const float r2 = dx * dx + dy * dy;
-      const float r = sqrtf(r2);
-      const float b = wrap_angle(atan2f(dy, dx) - pth);
-      const float r2s = fmaxf(r2, 1e-24f);
-      const float rs = sqrtf(r2s);
-      const float h00 = dx / rs, h01 = dy / rs;
-      const float h10 = -dy / r2s, h11 = dx / r2s;
-
-      // S = H C H^T + R, its determinant and inverse
-      const float hs00 = h00 * s00c + h01 * s01c;
-      const float hs01 = h00 * s01c + h01 * s11c;
-      const float hs10 = h10 * s00c + h11 * s01c;
-      const float hs11 = h10 * s01c + h11 * s11c;
-      const float s00 = hs00 * h00 + hs01 * h01 + prm.R00;
-      const float s01 = hs00 * h10 + hs01 * h11 + prm.R01;
-      const float s11 = hs10 * h10 + hs11 * h11 + prm.R11;
-      const float det = s00 * s11 - s01 * s01;
-      const float i00 = s11 / det;
-      const float i01 = -s01 / det;
-      const float i11 = s00 / det;
-
-      // K = C H^T S^-1, non-finite entries scrubbed (KalmanFilter.hpp:253-254)
-      const float cht00 = s00c * h00 + s01c * h01;
-      const float cht01 = s00c * h10 + s01c * h11;
-      const float cht10 = s01c * h00 + s11c * h01;
-      const float cht11 = s01c * h10 + s11c * h11;
-      const float k00 = finite_or_zero(cht00 * i00 + cht01 * i01);
-      const float k01 = finite_or_zero(cht00 * i01 + cht01 * i11);
-      const float k10 = finite_or_zero(cht10 * i00 + cht11 * i01);
-      const float k11 = finite_or_zero(cht10 * i01 + cht11 * i11);
-
-      // (I - K H) C, symmetrized (KalmanFilter.hpp:240-245)
-      const float a00 = 1.0f - (k00 * h00 + k01 * h10);
-      const float a01 = -(k00 * h01 + k01 * h11);
-      const float a10 = -(k10 * h00 + k11 * h10);
-      const float a11 = 1.0f - (k10 * h01 + k11 * h11);
-      const float u00 = a00 * s00c + a01 * s01c;
-      const float u01 = a00 * s01c + a01 * s11c;
-      const float u10 = a10 * s00c + a11 * s01c;
-      const float u11 = a10 * s01c + a11 * s11c;
-
-      // Pd with the close-to-limit buffer (RBPHDFilter.hpp:597-609)
-      const bool mvalid = (r <= prm.r_max) && (r >= prm.r_min);
-      const bool near_inner = mvalid && ((r >= prm.r_max - prm.r_buf) ||
-                                         (r <= prm.r_min + prm.r_buf));
-      const bool near_outer = !mvalid && (r <= prm.r_max + prm.r_buf) &&
-                              (r >= prm.r_min - prm.r_buf);
-      const bool close = (near_inner || near_outer) && alv;
-      const float pd = close ? 1.0f : ((mvalid && alv) ? prm.pd_const : 0.0f);
-
-      if constexpr (kMode != kTail) {
-        pd_out[pm] = pd;
-        k00_out[pm] = k00;
-        k01_out[pm] = k01;
-        k10_out[pm] = k10;
-        k11_out[pm] = k11;
-        cu00_out[pm] = u00;
-        cu01_out[pm] = 0.5f * (u01 + u10);
-        cu11_out[pm] = u11;
-        zer_out[pm] = r;
-        zeb_out[pm] = b;
-        wp_out[pm] = alv ? wv : w_prev[pm];
-      }
-
-      s_r[m] = r;
-      s_b[m] = b;
-      s_i00[m] = i00;
-      s_i01[m] = i01;
-      s_i11[m] = i11;
-      s_norm[m] = sqrtf(kTwoPiSq * det);
-      s_pd[m] = pd;
+      s_r[m] = e.s.r;
+      s_b[m] = e.b;
+      s_i00[m] = e.i00;
+      s_i01[m] = e.i01;
+      s_i11[m] = e.i11;
+      s_norm[m] = e.norm;
+      s_pd[m] = e.s.pd;
       s_w[m] = wv;
       s_row[m] = 0.f;
       // a cell of this slot can be nonzero only if it is alive, detectable
       // and in range (the likelihood is zeroed out of range)
-      in_table = alv && pd > 0.f && mvalid;
-      s_flag[m] = (alv ? kAlive : 0) | (close ? kClose : 0);
+      in_table = alv && e.s.pd > 0.f && e.s.mvalid;
+      s_flag[m] = (alv ? kAlive : 0) | (e.s.close ? kClose : 0);
     }
     const unsigned bits = __ballot_sync(kFull, in_table);
     if (lane == 0) s_tabw[base >> 5] = bits;
@@ -533,7 +584,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   for (int r = 0; r < (M + 31) / 32; ++r) {
     const unsigned word = s_tabw[r];
     ntab += __popc(word);
-    if constexpr (!kLarge) tabmask |= ((word >> lane) & 1u) << r;
+    tabmask |= ((word >> lane) & 1u) << r;
   }
   // the table's slots number lane and lane + 32, for column_compact
   int sm[2];
@@ -557,17 +608,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
                   wv = s_w[m];
       for (int kk = u / ntab; kk < nk; kk += groups) {
         const int k = k0 + kk;
-        float v = 0.f;
-        if (s_zm[k]) {
-          const float ir = s_z[2 * k] - r;
-          const float ib = wrap_angle(s_z[2 * k + 1] - b);
-          const bool gate_ok = (prm.t_r <= 0.f || fabsf(ir) <= prm.t_r) &&
-                               (prm.t_b <= 0.f || fabsf(ib) <= prm.t_b);
-          const float md2 = i00 * ir * ir + 2.0f * i01 * ir * ib +
-                            i11 * ib * ib;
-          const float lik = finite_or_zero(expf(-0.5f * md2) / norm);
-          if (gate_ok && md2 <= prm.md_t2 && lik > 0.f) v = pd * wv * lik;
-        }
+        const float v = cell_weight(prm, s_z[2 * k], s_z[2 * k + 1],
+                                    s_zm[k] != 0, r, b, i00, i01, i11, norm,
+                                    pd, wv);
         tab[kk * M + m] = v;
       }
     }
@@ -582,7 +625,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
         // the block's column sum, in column()'s order, without clutter
         float s = 0.f;
         for (int j = lane, r = 0; j < M; j += 32, ++r)
-          if (in_table<kLarge>(tabmask, s_tabw, lane, r)) s += col[j];
+          if ((tabmask >> r) & 1u) s += col[j];
         for (int off = 16; off > 0; off >>= 1)
           s += __shfl_xor_sync(kFull, s, off);
         if (lane == 0) colsum_out[p * Zc + k] = s;
@@ -591,21 +634,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
         const float cs_given = kMode == kTail ? colsum_in[p * Zc + k] : 0.f;
         const bool done =
             ntab <= 32
-                ? column_compact<1, kMode, kLarge>(
-                      col, sm, tabmask, s_tabw, M, T, Zc, k, zm, prm.clutter,
-                      lane, p, colsum_out, unused_out, cand_w, cand_m,
-                      cs_given, m_off)
+                ? column_compact<1, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
+                                           prm.clutter, lane, p, colsum_out,
+                                           unused_out, cand_w, cand_m,
+                                           cs_given, m_off)
             : ntab <= 64
-                ? column_compact<2, kMode, kLarge>(
-                      col, sm, tabmask, s_tabw, M, T, Zc, k, zm, prm.clutter,
-                      lane, p, colsum_out, unused_out, cand_w, cand_m,
-                      cs_given, m_off)
+                ? column_compact<2, kMode>(col, sm, tabmask, M, T, Zc, k, zm,
+                                           prm.clutter, lane, p, colsum_out,
+                                           unused_out, cand_w, cand_m,
+                                           cs_given, m_off)
                 : false;
         if (!done)
-          column<kMode, kLarge>(
-              col, tabmask, s_tabw, s_taken + warp * 32 * ((M + 1023) >> 10),
-              M, T, Zc, k, zm, prm.clutter, lane, p, colsum_out, unused_out,
-              cand_w, cand_m, cs_given, m_off);
+          column<kMode>(col, tabmask, M, T, Zc, k, zm, prm.clutter, lane, p,
+                        colsum_out, unused_out, cand_w, cand_m, cs_given,
+                        m_off);
       }
     }
     __syncthreads();
@@ -626,13 +668,367 @@ __global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_kernel(
   // row sums it wrote
   for (int m = tid; m < M; m += nthr) {
     const size_t pm = p * M + m;
-    const int f = s_flag[m];
-    const float pd = s_pd[m], wv = s_w[m];
-    float w_miss = (1.0f - pd) * wv;
-    const float delta = pd * wv - s_row[m];
-    if ((f & kClose) && wv > prm.birth_w && delta > 0.f)
-      w_miss = fminf(w_miss + delta, 1.0f);
-    w_out[pm] = (f & kAlive) ? w_miss : wv;
+    w_out[pm] = missed_weight(s_flag[m], s_pd[m], s_w[m], s_row[m],
+                              prm.birth_w);
+  }
+}
+
+
+// Phase 3 of the large form for one column (a warp) over the list of the
+// table's slots: this lane's entries col[32 i + lane], i < cnt (slot[]
+// ascending with i), ntab in all.  Every other
+// slot's entry is xz = 0 / col_sum (written to xz_out[k] for the row
+// sums).  The picks are the small form's T rounds of first-argmax with a
+// picked entry keyed as +0: first the entries keyed above +0 (the slots
+// outside the table among them where xz is a positive NaN), largest first
+// and lowest slot first among equals, each round the next after the last
+// pick; then, every round, the lowest slot keyed +0 (a picked one
+// included); or, where none is and nothing was picked, the first round's
+// largest entry below +0, then that slot as +0.  first_nt: the lowest slot
+// outside the table (M if none).
+template <int kMode>
+__device__ void column_tab(float* col, const int* slot, const unsigned* tabw,
+                           int cnt, int ntab, int first_nt, int M,
+                           int T, int Zc, int k, bool zm, float clutter,
+                           int lane, size_t p, float* colsum_out,
+                           bool* unused_out, float* cand_w, int64_t* cand_m,
+                           float cs_given, int m_off, float* xz_out) {
+  float c;
+  if constexpr (kMode == kTail) {
+    c = cs_given;
+  } else {
+    // the small form's order: lane partials over the lane's slots
+    // lane + 32 r in the table, ascending, then the butterfly
+    float s = 0.f;
+    for (int e = lane; e < 32 * cnt; e += 32) s += col[e];
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(kFull, s, off);
+    c = clutter + s;
+  }
+  const float xz = zm ? div_nz(0.f, c) : 0.f;
+  bool any = false;
+  int npos = 0, zl = M;  // entries keyed above +0; the first keyed +0
+  for (int e = lane; e < 32 * cnt; e += 32) {
+    const float x = zm ? div_nz(col[e], c) : 0.f;
+    col[e] = x;
+    any |= x > 0.f;
+    const unsigned key = order_key(x);
+    npos += key > kZeroKey;
+    if (key == kZeroKey && zl == M) zl = slot[e];
+  }
+  any = __any_sync(kFull, any);
+  if (lane == 0) {
+    if constexpr (kMode == kWhole) colsum_out[p * Zc + k] = c;
+    unused_out[p * Zc + k] = zm && !any;
+    xz_out[k] = xz;
+  }
+  const int n_out = M - ntab;  // slots outside the table, all keyed kx
+  const unsigned kx = order_key(xz);
+  npos = __reduce_add_sync(kFull, npos) + (kx > kZeroKey ? n_out : 0);
+
+  const size_t o = p * T * Zc + k;
+  unsigned gk = 0xffffffffu;  // the last pick, above every key at first
+  int gi = -1, minpick = M, t = 0;
+  for (; t < T && t < npos; ++t) {
+    unsigned best = kPadKey;
+    int bi = M;
+    for (int e = lane; e < 32 * cnt; e += 32) {
+      const unsigned key = order_key(col[e]);
+      if (key > kZeroKey && key <= gk && key > best) {
+        const int m = slot[e];
+        if (key < gk || m > gi) {
+          best = key;
+          bi = m;
+        }
+      }
+    }
+    unsigned g, idx;
+    warp_first_argmax(best, bi, g, idx);
+    if (kx > kZeroKey && n_out > 0) {
+      const int nxt = kx < gk    ? first_nt
+                      : kx == gk ? next_unset(tabw, gi + 1, M)
+                                 : M;
+      if (nxt < M && (kx > g || (kx == g && static_cast<unsigned>(nxt) < idx))) {
+        g = kx;
+        idx = nxt;
+      }
+    }
+    if (lane == 0) {
+      cand_w[o + static_cast<size_t>(t) * Zc] = key_value(g);
+      cand_m[o + static_cast<size_t>(t) * Zc] = idx + m_off;
+    }
+    gk = g;
+    gi = static_cast<int>(idx);
+    minpick = min(minpick, gi);
+  }
+  if (t == T) return;
+  int zidx = static_cast<int>(
+      __reduce_min_sync(kFull, static_cast<unsigned>(zl)));
+  if (kx == kZeroKey) zidx = min(zidx, first_nt);
+  zidx = min(zidx, minpick);
+  unsigned fk = kZeroKey;
+  int fi = zidx;
+  if (zidx >= M) {
+    // nothing picked and no entry keyed +0: every entry is below it
+    unsigned best = kPadKey;
+    int bi = M;
+    for (int e = lane; e < 32 * cnt; e += 32) {
+      const unsigned key = order_key(col[e]);
+      if (key > best) {
+        best = key;
+        bi = slot[e];
+      }
+    }
+    if (lane == 0 && first_nt < M &&
+        (kx > best || (kx == best && best != kPadKey && first_nt < bi))) {
+      best = kx;
+      bi = first_nt;
+    }
+    unsigned g, idx;
+    warp_first_argmax(best, bi, g, idx);
+    if (lane == 0) {
+      cand_w[o + static_cast<size_t>(t) * Zc] = key_value(g);
+      cand_m[o + static_cast<size_t>(t) * Zc] =
+          min(static_cast<int>(idx), M - 1) + m_off;
+    }
+    ++t;
+    if (idx < static_cast<unsigned>(M)) {
+      fi = static_cast<int>(idx);
+    } else {  // a lone NaN key below all: nothing taken, the same each round
+      fk = g;
+      fi = M - 1;
+    }
+  }
+  for (int tt = t + lane; tt < T; tt += 32) {
+    cand_w[o + static_cast<size_t>(tt) * Zc] = key_value(fk);
+    cand_m[o + static_cast<size_t>(tt) * Zc] = fi + m_off;
+  }
+}
+
+// The large form (M > 1024): see the file's head.  smem_words: the dynamic
+// shared memory in words; stash_ws: the workspace ([P, 11 M32] floats,
+// M32 = 32 ceil(M / 32)) or null; stats (or null): [0] the largest ntab, [1] the CTAs whose stash went
+// to the workspace, [2] the most table chunks of a CTA.
+template <int kMode>
+__global__ void __launch_bounds__(kMaxThreads, 2) map_update2d_large(
+    Params prm, int M, int Zc, int T, int smem_words, int m_off,
+    float* __restrict__ stash_ws, int* __restrict__ stats,
+    const float* __restrict__ colsum_in,
+    const float* __restrict__ pose, const float* __restrict__ mx,
+    const float* __restrict__ my, const float* __restrict__ c00,
+    const float* __restrict__ c01, const float* __restrict__ c11,
+    const float* __restrict__ w, const float* __restrict__ w_prev,
+    const bool* __restrict__ alive, const float* __restrict__ z,
+    const bool* __restrict__ zmask, float* __restrict__ out,
+    bool* __restrict__ unused_out, int64_t* __restrict__ cand_m) {
+  const size_t p = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = nthr >> 5;
+  const int W = (M + 31) / 32;
+
+  // shared memory: z [Zc, 2], z mask [Zc], each column's entry outside the
+  // table [Zc], the table bits [W], the bits of the alive, close slots
+  // outside the table [W], table slots by warp and lane [warps, 32]; then
+  // the stash (11 planes [n_ent], unless in the workspace) and the table
+  // chunk [zb, n_ent] (the wrapper's launch_plan sizes them for n_ent =
+  // 32 W)
+  extern __shared__ float smem[];
+  float* s_z = smem;
+  int* s_zm = reinterpret_cast<int*>(s_z + 2 * Zc);
+  float* s_xz = reinterpret_cast<float*>(s_zm + Zc);
+  unsigned* s_tabw = reinterpret_cast<unsigned*>(s_xz + Zc);
+  unsigned* s_cwo = s_tabw + W;
+  int* s_part = reinterpret_cast<int*>(s_cwo + W);
+  float* dyn = reinterpret_cast<float*>(s_part + 32 * n_warps);
+  const int avail = smem_words - (4 * Zc + 2 * W + 32 * n_warps);
+
+  // outputs as the small form's
+  const int P = gridDim.x;
+  const size_t PM = static_cast<size_t>(P) * M;
+  float* w_out = out;
+  float* colsum_out = out + 12 * PM;
+  float* cand_w = kMode == kTail ? out + PM
+                                 : colsum_out + static_cast<size_t>(P) * Zc;
+  const float px = pose[3 * p], py = pose[3 * p + 1], pth = pose[3 * p + 2];
+
+  for (int k = tid; k < Zc; k += nthr) {
+    s_z[2 * k] = z[2 * k];
+    s_z[2 * k + 1] = z[2 * k + 1];
+    s_zm[k] = zmask[k] ? 1 : 0;
+  }
+  // ---- 1a. the table's slots: a warp takes the words [r0, r1)
+  const int per_warp = (W + n_warps - 1) / n_warps;
+  const int r0 = min(W, warp * per_warp), r1 = min(W, r0 + per_warp);
+  int cnt = 0;
+  for (int r = r0; r < r1; ++r) {
+    const int m = 32 * r + lane;
+    bool tab = false, cwo = false;
+    if (m < M) {
+      const size_t pm = p * M + m;
+      const bool alv = alive[pm];
+      const SlotRange sr = slot_range(prm, px, py, mx[pm], my[pm], alv);
+      tab = alv && sr.pd > 0.f && sr.mvalid;
+      cwo = sr.close && !tab;  // close implies alive
+    }
+    const unsigned tb = __ballot_sync(kFull, tab);
+    const unsigned cb = __ballot_sync(kFull, cwo);
+    if (lane == 0) {
+      s_tabw[r] = tb;
+      s_cwo[r] = cb;
+    }
+    cnt += tab;
+  }
+  s_part[warp * 32 + lane] = cnt;
+  __syncthreads();
+  // this lane's slots in the table (tot), and those of the warps before
+  // (pre: this warp's first entry is 32 pre + lane); the list's entries
+  int tot = 0, pre = 0;
+  for (int v = 0; v < n_warps; ++v) {
+    const int c = s_part[v * 32 + lane];
+    tot += c;
+    pre += v < warp ? c : 0;
+  }
+  const int ntab = __reduce_add_sync(kFull, tot);
+  const int n_ent = 32 * __reduce_max_sync(kFull, static_cast<unsigned>(tot));
+
+  // the stash in shared memory when the whole table fits beside it (or no
+  // workspace was given: then the plan leaves room for a column), else in
+  // this particle's part of the workspace
+  const bool st_global =
+      stash_ws != nullptr && (11 + Zc) * static_cast<long>(n_ent) > avail;
+  const int zb = max(1, min(Zc, n_ent == 0 ? Zc
+                                           : (avail - (st_global ? 0 : 11 * n_ent)) /
+                                                 n_ent));
+  float* st = st_global ? stash_ws + p * static_cast<size_t>(11 * 32 * W)
+                        : dyn;
+  float* s_r = st;
+  float* s_b = st + n_ent;
+  float* s_i00 = s_b + n_ent;
+  float* s_i01 = s_i00 + n_ent;
+  float* s_i11 = s_i01 + n_ent;
+  float* s_norm = s_i11 + n_ent;
+  float* s_pd = s_norm + n_ent;
+  float* s_w = s_pd + n_ent;
+  float* s_row = s_w + n_ent;  // row sums of the normalised table
+  int* s_flag = reinterpret_cast<int*>(s_row + n_ent);
+  int* s_slot = s_flag + n_ent;  // -1: a hole
+  float* tab = st_global ? dyn : dyn + 11 * n_ent;
+  if (stats != nullptr && tid == 0) {
+    atomicMax(&stats[0], ntab);
+    atomicAdd(&stats[1], st_global ? 1 : 0);
+    atomicMax(&stats[2], (Zc + zb - 1) / zb);
+  }
+
+  // ---- 1b. per slot, the same words: the plane outputs, the table's
+  // slots' stash at their place in the list, the other slots' weight
+  if (warp == 0)
+    for (int i = tot; i < n_ent / 32; ++i) s_slot[32 * i + lane] = -1;
+  int e = 32 * pre + lane;
+  for (int r = r0; r < r1; ++r) {
+    const int m = 32 * r + lane;
+    if (m >= M) break;
+    const size_t pm = p * M + m;
+    const float wv = w[pm];
+    const bool alv = alive[pm];
+    const SlotEkf x = slot_ekf(prm, px, py, pth, mx[pm], my[pm], c00[pm],
+                               c01[pm], c11[pm], alv);
+    if constexpr (kMode != kTail)
+      write_planes(out, PM, pm, x, alv ? wv : w_prev[pm]);
+    const int f = (alv ? kAlive : 0) | (x.s.close ? kClose : 0);
+    if ((s_tabw[r] >> lane) & 1u) {
+      s_r[e] = x.s.r;
+      s_b[e] = x.b;
+      s_i00[e] = x.i00;
+      s_i01[e] = x.i01;
+      s_i11[e] = x.i11;
+      s_norm[e] = x.norm;
+      s_pd[e] = x.s.pd;
+      s_w[e] = wv;
+      s_row[e] = 0.f;
+      s_flag[e] = f;
+      s_slot[e] = m;
+      e += 32;
+    } else if constexpr (kMode != kHead) {
+      // the row sum outside the table folds zeros (the NaN case below)
+      w_out[pm] = missed_weight(f, x.s.pd, wv, 0.f, prm.birth_w);
+    }
+  }
+  const int first_nt = ntab < M ? next_unset(s_tabw, 0, M) : M;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < Zc; k0 += zb) {
+    const int nk = min(zb, Zc - k0);
+
+    // ---- 2. the table chunk [nk, n_ent]: thread u = e + n_ent g takes
+    // list entry e, its fields in registers, and the columns g, g + groups,
+    // ... (a hole's cells are never read)
+    const int groups = max(1, nthr / max(n_ent, 1));
+    for (int u = tid; u < n_ent * groups; u += nthr) {
+      const int q = u % n_ent;
+      if (s_slot[q] < 0) continue;
+      const float r = s_r[q], b = s_b[q], i00 = s_i00[q], i01 = s_i01[q],
+                  i11 = s_i11[q], norm = s_norm[q], pd = s_pd[q],
+                  wv = s_w[q];
+      for (int kk = u / n_ent; kk < nk; kk += groups) {
+        const int k = k0 + kk;
+        tab[kk * n_ent + q] = cell_weight(prm, s_z[2 * k], s_z[2 * k + 1],
+                                         s_zm[k] != 0, r, b, i00, i01, i11,
+                                         norm, pd, wv);
+      }
+    }
+    __syncthreads();
+
+    // ---- 3. a warp per column
+    for (int kk = warp; kk < nk; kk += n_warps) {
+      const int k = k0 + kk;
+      float* col = tab + kk * n_ent;
+      if constexpr (kMode == kHead) {
+        // the block's column sum, in the small form's order, no clutter
+        float s = 0.f;
+        for (int q = lane; q < 32 * tot; q += 32) s += col[q];
+        for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
+        if (lane == 0) colsum_out[p * Zc + k] = s;
+      } else {
+        column_tab<kMode>(col, s_slot, s_tabw, tot, ntab, first_nt, M,
+                          T, Zc, k, s_zm[k] != 0, prm.clutter, lane, p,
+                          colsum_out, unused_out, cand_w, cand_m,
+                          kMode == kTail ? colsum_in[p * Zc + k] : 0.f,
+                          m_off, s_xz);
+      }
+    }
+    __syncthreads();
+
+    // ---- 4a. row sums in column order
+    if constexpr (kMode != kHead) {
+      for (int q = tid; q < n_ent; q += nthr) {
+        if (s_slot[q] < 0) continue;
+        float row = s_row[q];
+        for (int kk = 0; kk < nk; ++kk) row += tab[kk * n_ent + q];
+        s_row[q] = row;
+      }
+    }
+    if (k0 + zb < Zc) __syncthreads();  // the next chunk overwrites tab
+  }
+  if constexpr (kMode == kHead) return;
+
+  // ---- 4b. the table's slots' missed-detection weights; each thread
+  // reads the row sums it wrote
+  for (int q = tid; q < n_ent; q += nthr)
+    if (s_slot[q] >= 0)
+      w_out[p * M + s_slot[q]] = missed_weight(s_flag[q], s_pd[q], s_w[q],
+                                               s_row[q], prm.birth_w);
+  // outside the table the row sum is the fold of the columns' xz: a zero,
+  // or NaN, which ends the compensation of the alive, close slots there
+  float fold = 0.f;
+  for (int k = 0; k < Zc; ++k) fold += s_xz[k];
+  if (fold != fold) {
+    for (int m = tid; m < M; m += nthr)
+      if ((s_cwo[m >> 5] >> (m & 31)) & 1u)
+        w_out[p * M + m] = missed_weight(kAlive | kClose, 1.0f,
+                                         w[p * M + m], fold, prm.birth_w);
   }
 }
 
@@ -657,72 +1053,89 @@ Params unpack_params(const float* params) {
   return prm;
 }
 
-template <int kMode, bool kLarge>
-int launch(int P, int M, int Zc, int T, int threads, int smem, int zb,
-           int m_off, void* stash, const float* params,
-           const void* colsum_in,
-           const void* pose, const void* mx, const void* my, const void* c00,
-           const void* c01, const void* c11, const void* w,
-           const void* w_prev, const void* alive, const void* z,
-           const void* zmask, void* out, void* unused_out, void* cand_m,
-           void* stream) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      zb < 1 || M < 1 || (!kLarge && (M > 32 * 32 || stash != nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params prm = unpack_params(params);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        map_update2d_kernel<kMode, kLarge>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  map_update2d_kernel<kMode, kLarge><<<P, threads, smem, st>>>(
-      prm, M, Zc, T, zb, m_off, static_cast<float*>(stash),
-      static_cast<const float*>(colsum_in),
-      static_cast<const float*>(pose),
-      static_cast<const float*>(mx), static_cast<const float*>(my),
-      static_cast<const float*>(c00), static_cast<const float*>(c01),
-      static_cast<const float*>(c11), static_cast<const float*>(w),
-      static_cast<const float*>(w_prev), static_cast<const bool*>(alive),
-      static_cast<const float*>(z), static_cast<const bool*>(zmask),
-      static_cast<float*>(out), static_cast<bool*>(unused_out),
-      static_cast<int64_t*>(cand_m));
-  return static_cast<int>(cudaGetLastError());
+// fixed words of the large form's shared memory before the stash and the
+// table, which the plan sizes for 32 ceil(M / 32) entries (the wrapper's
+// launch_plan counts them the same way)
+int large_fixed_words(int M, int Zc, int threads) {
+  return 4 * Zc + 2 * ((M + 31) / 32) + threads;
 }
 
 // threads, smem and zb come from the wrapper's launch_plan; the form
-// follows from M: the small form at M <= 1024, else the large form, whose
-// stash (launch_plan's workspace, [P, 10, M] floats) may be null: then the
-// slot planes stay in shared memory.
+// follows from M.  The small form (M <= 1024) takes no stash; the large
+// form ignores zb (its chunk follows from the table's slots), and without a
+// stash ([P, 11, M32] floats, M32 = 32 ceil(M / 32)) its shared memory must
+// hold the stash of M32 entries and a column.
 template <int kMode>
-int launch_form(int P, int M, int Zc, int T, int threads, int smem, int zb,
-                int m_off, void* stash, const float* params,
-                const void* colsum_in, const void* pose, const void* mx,
-                const void* my, const void* c00, const void* c01,
-                const void* c11, const void* w, const void* w_prev,
-                const void* alive, const void* z, const void* zmask,
-                void* out, void* unused_out, void* cand_m, void* stream) {
-  auto fn = M > 32 * 32 ? launch<kMode, true> : launch<kMode, false>;
-  return fn(P, M, Zc, T, threads, smem, zb, m_off, stash, params, colsum_in,
-            pose, mx, my, c00, c01, c11, w, w_prev, alive, z, zmask, out,
-            unused_out, cand_m, stream);
+int launch(int P, int M, int Zc, int T, int threads, int smem, int zb,
+           int m_off, void* stash, int* stats, const float* params,
+           const void* colsum_in, const void* pose, const void* mx,
+           const void* my, const void* c00, const void* c01, const void* c11,
+           const void* w, const void* w_prev, const void* alive,
+           const void* z, const void* zmask, void* out, void* unused_out,
+           void* cand_m, void* stream) {
+  const bool large = M > 32 * 32;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || M < 1 ||
+      (!large && (zb < 1 || stash != nullptr)) ||
+      (large && smem / 4 < large_fixed_words(M, Zc, threads) +
+                               (stash != nullptr ? 1 : 12) * 32 *
+                                   ((M + 31) / 32)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params prm = unpack_params(params);
+  auto small_k = map_update2d_kernel<kMode>;
+  auto large_k = map_update2d_large<kMode>;
+  if (smem > 48 * 1024) {
+    cudaError_t e =
+        large ? cudaFuncSetAttribute(
+                    large_k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+              : cudaFuncSetAttribute(
+                    small_k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* cs = static_cast<const float*>(colsum_in);
+  const auto* ps = static_cast<const float*>(pose);
+  const auto* x = static_cast<const float*>(mx);
+  const auto* y = static_cast<const float*>(my);
+  const auto* a = static_cast<const float*>(c00);
+  const auto* b = static_cast<const float*>(c01);
+  const auto* c = static_cast<const float*>(c11);
+  const auto* wi = static_cast<const float*>(w);
+  const auto* wp = static_cast<const float*>(w_prev);
+  const auto* al = static_cast<const bool*>(alive);
+  const auto* zz = static_cast<const float*>(z);
+  const auto* zm = static_cast<const bool*>(zmask);
+  auto* o = static_cast<float*>(out);
+  auto* uo = static_cast<bool*>(unused_out);
+  auto* cm = static_cast<int64_t*>(cand_m);
+  if (large)
+    large_k<<<P, threads, smem, st>>>(prm, M, Zc, T, smem / 4, m_off,
+                                      static_cast<float*>(stash), stats, cs,
+                                      ps, x, y, a, b, c, wi, wp, al, zz, zm,
+                                      o, uo, cm);
+  else
+    small_k<<<P, threads, smem, st>>>(prm, M, Zc, T, zb, m_off, cs, ps, x, y,
+                                      a, b, c, wi, wp, al, zz, zm, o, uo, cm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // out: one float buffer of 12 planes [P, M] (w, w_prev, pd, K00, K01, K10,
 // K11, cov_upd 00/01/11, z_exp r/b), then col_sum [P, Zc], then cand_w
-// [P, T * Zc].
+// [P, T * Zc].  stash: the large form's workspace (launch_plan) or null;
+// stats: null, or three ints the large form updates (see
+// map_update2d_large).
 extern "C" int map_update2d_launch(
     int P, int M, int Zc, int T, int threads, int smem, int zb,
     const float* params, const void* pose, const void* mx, const void* my,
     const void* c00, const void* c01, const void* c11, const void* w,
     const void* w_prev, const void* alive, const void* z, const void* zmask,
-    void* out, void* unused_out, void* cand_m, void* stash, void* stream) {
-  return launch_form<kWhole>(P, M, Zc, T, threads, smem, zb, 0, stash, params,
-                             nullptr, pose, mx, my, c00, c01, c11, w, w_prev,
-                             alive, z, zmask, out, unused_out, cand_m, stream);
+    void* out, void* unused_out, void* cand_m, void* stash, int* stats,
+    void* stream) {
+  return launch<kWhole>(P, M, Zc, T, threads, smem, zb, 0, stash, stats,
+                        params, nullptr, pose, mx, my, c00, c01, c11, w,
+                        w_prev, alive, z, zmask, out, unused_out, cand_m,
+                        stream);
 }
 
 // The block form on a block of M slots (the global slots m_off ..
@@ -738,8 +1151,8 @@ extern "C" int map_update2d_block_launch(
     const void* c01, const void* c11, const void* w, const void* w_prev,
     const void* alive, const void* z, const void* zmask, void* out,
     void* unused_out, void* cand_m, void* stash, void* stream) {
-  auto fn = tail ? launch_form<kTail> : launch_form<kHead>;
-  return fn(P, M, Zc, T, threads, smem, zb, m_off, stash, params,
+  auto fn = tail ? launch<kTail> : launch<kHead>;
+  return fn(P, M, Zc, T, threads, smem, zb, m_off, stash, nullptr, params,
             colsum_in, pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
             zmask, out, unused_out, cand_m, stream);
 }

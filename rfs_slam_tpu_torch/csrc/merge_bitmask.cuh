@@ -1,8 +1,8 @@
 // The pair search of one Gaussian-mixture merge pass as bit masks, for the
 // merge kernels (one CTA per particle, blockDim a multiple of 32).  The slot
 // fields and the masks live in shared memory (the small forms, N <= 1024)
-// or in the particle's part of a global workspace (the large forms); the
-// functions take either, through generic pointers.
+// or in the particle's part of a global workspace (merge3d's large form);
+// the functions take either, through generic pointers.
 //
 // Over the alive slots below hi (one past the highest alive slot):
 //   gate_rows   G[j * W + w] bit b: slot k = 32 w + b < j is gated with j,
@@ -91,6 +91,93 @@ __device__ __forceinline__ void claim(int j, const int* alive, int hi, int W,
 
 __device__ __forceinline__ void clear_safe(unsigned* A, int W) {
   for (int w = threadIdx.x; w < W; w += blockDim.x) A[w] = 0;
+}
+
+// The mask-free search of merge2d's large form.  It needs two facts of
+// the gate mask G above, not G itself: whether row j has any bit (j is
+// unsafe), and the lowest bit of G[j] & A.  alive and safe are bit words
+// (bit s % 32 of word s / 32), safe zero on entry; link holds N for every
+// slot on entry.  After each step the block needs a barrier.
+//   safe_sweep   a warp takes an alive row j, its fields in registers, and
+//                walks the words of k < j from the top one down (a word
+//                with no alive slot is skipped), one ballot per word over
+//                the alive lanes, to its first gated partner: only whether
+//                one exists matters, and a partner is most often near.  A
+//                row that finds none sets its safe bit.
+//   safe_words   one warp lists the non-zero safe words in ascending
+//                order: list[0 .. *count).
+//   claim_sweep  a warp takes each alive row j that is not safe and walks
+//                the listed safe words below j, testing only the safe
+//                lanes; the lowest lane of the first non-zero ballot is
+//                j's claim (G[j] & A's lowest bit), kept in link by the
+//                absorber's atomicMin as in claim(): an absorber's
+//                link[i] is its lowest claim (j_star).
+// Both evaluate the gates in the same arithmetic as gate_rows, so the
+// claims, and every pass after them, are the mask's to the bit.
+__device__ __forceinline__ bool bit(const unsigned* words, int s) {
+  return (words[s >> 5] >> (s & 31)) & 1u;
+}
+
+template <class Gate>
+__device__ __forceinline__ void safe_sweep(const Gate& gate,
+                                           const unsigned* alive, int hi,
+                                           unsigned* safe) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < hi; j += blockDim.x >> 5) {
+    if (!bit(alive, j)) continue;
+    const auto fj = gate.fields(j);
+    bool found = false;
+    for (int w = words(j) - 1; w >= 0 && !found; --w) {
+      const unsigned aw = alive[w];
+      if (aw == 0) continue;
+      const int k = 32 * w + lane;
+      const bool ak = ((aw >> lane) & 1u) && k < j;
+      const auto fk = gate.fields(ak ? k : 0);
+      found = __ballot_sync(kFull, ak && gate.test(fk, fj)) != 0;
+    }
+    if (lane == 0 && !found) atomicOr(&safe[j >> 5], 1u << (j & 31));
+  }
+}
+
+__device__ __forceinline__ void safe_words(const unsigned* safe, int W,
+                                           int* list, int* count) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int n = 0;
+  for (int base = 0; base < W; base += 32) {
+    const int w = base + lane;
+    const unsigned sw = w < W ? safe[w] : 0u;
+    const unsigned b = __ballot_sync(kFull, sw != 0);
+    if (sw) list[n + __popc(b & ((1u << lane) - 1u))] = w;
+    n += __popc(b);
+  }
+  if (lane == 0) *count = n;
+}
+
+template <class Gate>
+__device__ __forceinline__ void claim_sweep(const Gate& gate,
+                                            const unsigned* alive,
+                                            const unsigned* safe,
+                                            const int* list, int n, int hi,
+                                            int* link) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < hi; j += blockDim.x >> 5) {
+    if (!bit(alive, j) || bit(safe, j)) continue;
+    const auto fj = gate.fields(j);
+    for (int q = 0; q < n; ++q) {
+      const int w = list[q];
+      if (32 * w >= j) break;
+      const unsigned sw = safe[w];
+      const int k = 32 * w + lane;
+      const bool sk = ((sw >> lane) & 1u) && k < j;
+      const auto fk = gate.fields(sk ? k : 0);
+      const unsigned b = __ballot_sync(kFull, sk && gate.test(fk, fj));
+      if (b) {
+        if (lane == 0) atomicMin(&link[32 * w + __ffs(b) - 1], j);
+        break;
+      }
+    }
+  }
 }
 
 // A slot-wise phase over slots 0 .. n - 1.  The small form (blockDim >= n):

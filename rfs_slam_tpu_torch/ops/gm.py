@@ -111,16 +111,17 @@ def replace_weakest(gm: GMState, mean, cov, w, alive,
     )
 
 
-def _merge_pass(gm: GMState, t2, f_inflation):
-    """One parallel pass of disjoint pairwise merges over the [P, M, M]
-    pair cube.  Returns (gm, number of merges).
+def _merge_pairs(gm: GMState, t2):
+    """The pair choice of one merge pass over the [P, M, M] pair cube:
+    ``(gate, first_i, j_star)``.
 
     Gate (GaussianMixture.hpp:430-441): merge j into i (i < j, both alive)
     when either mean lies within t^2 of the other under its covariance.
-    Lowest-index i claims each j, and each i merges with its lowest claimed
-    j.  Safe-absorber rule: only a component with no smaller gated partner
-    absorbs in this pass, else a broken chain (k-x and x-j gated, k-j not)
-    loses j's mass; a deferred x absorbs on a later pass.
+    Lowest-index i claims each j (``first_i [P, j]``, M where none), and
+    each i merges with its lowest claimed j (``j_star [P, i]``, M where
+    none).  Safe-absorber rule: only a component with no smaller gated
+    partner absorbs in this pass, else a broken chain (k-x and x-j gated,
+    k-j not) loses j's mass; a deferred x absorbs on a later pass.
     """
     D = gm.dim
     P, M = gm.w.shape
@@ -144,6 +145,16 @@ def _merge_pass(gm: GMState, t2, f_inflation):
     claimed = safe_gate & (i_ids == first_i[:, None, :])
     j_ids = idx[None, None, :].expand(P, M, M)
     j_star = torch.where(claimed, j_ids, big).amin(dim=2)          # [P, i]
+    return gate, first_i, j_star
+
+
+def _merge_pass(gm: GMState, t2, f_inflation):
+    """One parallel pass of disjoint pairwise merges over the [P, M, M]
+    pair cube (:func:`_merge_pairs`), moment-matched with covariance
+    inflation.  Returns (gm, number of merges)."""
+    D = gm.dim
+    P, M = gm.w.shape
+    j_star = _merge_pairs(gm, t2)[2]
     has_pair = j_star < M
     j_safe = torch.where(has_pair, j_star, torch.zeros_like(j_star))
 

@@ -63,6 +63,11 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card ``device`` is on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def workspace_bytes(P: int, per_particle: int) -> int:
     """Bytes of a large form's global workspace: ``P`` parts of
     ``per_particle`` bytes, each rounded up to 16 so that every part's

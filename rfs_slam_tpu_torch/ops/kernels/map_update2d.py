@@ -7,12 +7,13 @@ particle in one CTA and emits only plane-sized results; the ``[Zc, M]``
 weight table stays in shared memory (in chunks of columns at large M; see
 :func:`launch_plan`).  Two forms, chosen from the shape: the small form
 (M <= 1,024: a slot's table and pick bits in a lane's 32-bit words) and
-the large form (any M above: the bits in shared words, the per-slot stash
-in a global workspace where shared memory cannot hold it), with the same
-statements of arithmetic and the same summation order.  The exact top-k
-over the ``Zc * T`` survivors, the ``m + K nu`` reconstruction and
-``replace_weakest`` stay in plain PyTorch (``filters/rbphd.py``), as they
-stay in XLA in the JAX package.
+the large form (any M above: phases 2-4 over a list of the slots that can
+hold a nonzero cell, interleaved by lane, the table ``[Zc, entries]``, the
+stash of those slots only, in a global workspace where it does not fit
+beside the table), with the same statements of arithmetic and the same
+summation order.  The exact top-k over the ``Zc * T`` survivors, the ``m +
+K nu`` reconstruction and ``replace_weakest`` stay in plain PyTorch
+(``filters/rbphd.py``), as they stay in XLA in the JAX package.
 
 :func:`fused_map_update2d` launches the kernel for CUDA tensors and runs
 :func:`map_update2d_plain` for CPU tensors; nothing falls back.
@@ -48,6 +49,11 @@ SMALL_SLOTS = 1024   # the small form: a lane's slot bits in one word
 MAX_THREADS = 512    # 16 warps: two CTAs an SM (the kernel's launch bounds)
 SLOT_PLANES = 10     # per-slot words of the kernel's stash
 TABLE_BYTES = 96 * 1024  # the weight-table chunk's shared memory
+LARGE_PLANES = 11    # the large form's stash words per table slot
+# the large form's shared memory where two CTAs share an SM (228 KB less
+# 1 KB a CTA); where each CTA has an SM of its own (no more particles than
+# the card's SMs) it takes Hopper's whole opt-in limit
+LARGE_SMEM = 113 * 1024
 
 # kernel launches made by fused_map_update2d and the block form's head and
 # tail (the twin does not count), and those of them in the large form
@@ -207,36 +213,59 @@ class LaunchPlan(NamedTuple):
     workspace: int = 0    # global bytes of the large form's stash (or 0)
 
 
-def launch_plan(P: int, M: int, Zc: int, T: int) -> LaunchPlan:
+def launch_plan(P: int, M: int, Zc: int, T: int,
+                sms: int = 0) -> LaunchPlan:
     """The kernel's launch configuration, one CTA per particle.
 
-    Shared memory holds z and its mask (3 words a measurement), the
-    ``SLOT_PLANES`` per-slot planes (the stash), a bit word per 32 slots
-    and a chunk of ``zb`` table columns (all ``Zc`` at bench shape; fewer
-    at large M, so that the chunk stays within ``TABLE_BYTES``), as
-    ``csrc/map_update2d.cu`` lays it out.  One warp per slot word or per
-    column of the chunk, at most 16.  The large form (M >
-    ``SMALL_SLOTS``) adds the warps' pick bits (32 * ceil(M / 1024) words
-    a warp) and, where the whole no longer fits, moves the stash to a
-    global workspace of ``4 * SLOT_PLANES * P * M`` bytes.  Raises
-    ``ValueError`` for a shape neither form takes (one table column and
-    the bits past shared memory).
+    The small form (M <= ``SMALL_SLOTS``): shared memory holds z and its
+    mask (3 words a measurement), the ``SLOT_PLANES`` per-slot planes (the
+    stash), a bit word per 32 slots and a chunk of ``zb`` table columns
+    (all ``Zc`` at bench shape; fewer at large M, so that the chunk stays
+    within ``TABLE_BYTES``), as ``csrc/map_update2d.cu`` lays it out.  One
+    warp per slot word or per column of the chunk, at most 16.
+
+    The large form (M above): 16 warps; shared memory holds z, its mask
+    and each column's entry outside the table (4 words a measurement), two
+    bit words per 32 slots and a count per thread, then the list of the
+    table's slots, interleaved by lane (32 times the most a lane holds,
+    at most M32 = 32 * ceil(M / 32) entries): their stash
+    (``LARGE_PLANES`` words each) and the table ``[zb, entries]``.  The
+    kernel takes ``zb`` from the list it finds; the plan sizes shared
+    memory for M32 entries: ``LARGE_SMEM`` (two CTAs an SM), or Hopper's
+    limit at ``sms`` particles or fewer (``sms``: the card's SMs,
+    :func:`build.sm_count`; 0 where no card is known, as on the CPU), and
+    no more than the whole table with its stash needs.  Where the stash of
+    M32 entries and a column do not fit, the stash goes to a global
+    workspace of ``4 * LARGE_PLANES * P * M32`` bytes, used by a CTA whose
+    list leaves too little room for the whole table beside its stash.  The
+    plan's ``zb`` is the chunk at M32 entries.  Raises ``ValueError`` for a
+    shape neither form takes (one table column and the bits past shared
+    memory).
     """
     if P < 1 or M < 1 or Zc < 0 or T < 0:
         raise ValueError(f"map_update2d: no launch for P={P}, M={M}, "
                          f"Zc={Zc}, T={T}")
-    zb = max(1, min(Zc, TABLE_BYTES // (4 * M)))
-    warps = min(MAX_THREADS // 32, max(-(-M // 32), zb))
-    fixed = 3 * Zc + -(-M // 32) + zb * M     # z, table bits, table chunk
+    words = -(-M // 32)
     if M <= SMALL_SLOTS:
+        zb = max(1, min(Zc, TABLE_BYTES // (4 * M)))
+        warps = min(MAX_THREADS // 32, max(words, zb))
+        fixed = 3 * Zc + words + zb * M     # z, table bits, table chunk
         plan = LaunchPlan(32 * warps, 4 * (fixed + SLOT_PLANES * M), zb)
     else:
-        fixed += warps * 32 * -(-M // 1024)   # the warps' pick bits
-        plan = LaunchPlan(32 * warps, 4 * (fixed + SLOT_PLANES * M), zb,
-                          "large")
-        if plan.smem > build.MAX_SMEM:        # the stash to global memory
-            plan = LaunchPlan(32 * warps, 4 * fixed, zb, "large",
-                              4 * SLOT_PLANES * P * M)
+        fixed = 4 * Zc + 2 * words + MAX_THREADS   # large_fixed_words
+        budget = build.MAX_SMEM if P <= sms else LARGE_SMEM
+        n = 32 * words                             # the list's most entries
+        whole = fixed + (LARGE_PLANES + Zc) * n    # and the table, one chunk
+        if 4 * (fixed + (LARGE_PLANES + 1) * n) <= budget:
+            smem = min(budget, 4 * max(whole, fixed + 12 * n))
+            zb = (smem // 4 - fixed - LARGE_PLANES * n) // n
+            plan = LaunchPlan(MAX_THREADS, smem, max(1, min(Zc, zb)),
+                              "large")
+        else:
+            smem = max(4 * (fixed + n), min(budget, 4 * (fixed + Zc * n)))
+            plan = LaunchPlan(MAX_THREADS, smem,
+                              max(1, min(Zc, (smem // 4 - fixed) // n)),
+                              "large", 4 * LARGE_PLANES * P * n)
     if plan.smem > build.MAX_SMEM:
         raise ValueError(f"map_update2d: M={M}, Zc={Zc} needs {plan.smem} B "
                          f"of shared memory, more than {build.MAX_SMEM}")
@@ -248,7 +277,7 @@ def _lib():
     if lib.map_update2d_launch.argtypes is None:
         lib.map_update2d_launch.argtypes = (
             [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_float)]
-            + [ctypes.c_void_p] * 16)
+            + [ctypes.c_void_p] * 17)
         lib.map_update2d_launch.restype = ctypes.c_int
     return lib
 
@@ -267,12 +296,16 @@ def _c_params(params: tuple):
 
 
 def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
-                       z_mask, params, new_per_z: int = 8) -> FusedMapUpdate:
+                       z_mask, params, new_per_z: int = 8,
+                       stats=None) -> FusedMapUpdate:
     """Run the map-update head: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors.
 
     pose [P, 3]; mx..w_prev [P, M] float32; alive [P, M] bool; z [Zc, 2];
-    z_mask [Zc] bool; ``params`` from :func:`pack_params`.
+    z_mask [Zc] bool; ``params`` from :func:`pack_params`.  ``stats``: an
+    int32 tensor of 3 zeros on the card, or None; the large form writes
+    into it the largest count of a particle's table slots, the particles
+    whose stash went to the workspace and the most table chunks of one.
     """
     if not pose.is_cuda:
         return map_update2d_plain(pose, mx, my, c00, c01, c11, w, w_prev,
@@ -281,7 +314,7 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
     P, M = w.shape
     Zc = z.shape[0]
     T = new_per_z
-    plan = launch_plan(P, M, Zc, T)
+    plan = launch_plan(P, M, Zc, T, build.sm_count(pose.device))
     if len(params) != N_PARAMS:
         raise ValueError(f"map_update2d: {len(params)} params, "
                          f"need {N_PARAMS}")
@@ -307,7 +340,7 @@ def fused_map_update2d(pose, mx, my, c00, c01, c11, w, w_prev, alive, z,
         P, M, Zc, T, *_plan_args(plan), _c_params(tuple(params)),
         *(t.data_ptr() for t in (*floats[:8], alive, floats[8], z_mask, out,
                                  un_o, cm_o)),
-        build.ptr(stash), build.stream_of(pose))
+        build.ptr(stash), build.ptr(stats), build.stream_of(pose))
     if err != 0:
         raise RuntimeError(f"map_update2d launch failed: CUDA error {err}")
     launches += 1
@@ -323,7 +356,7 @@ def _block_inputs(pose, mx, my, c00, c01, c11, w, w_prev, alive, z, z_mask,
     """The launch plan and the checked inputs of a block-form launch."""
     P, M = w.shape
     Zc = z.shape[0]
-    plan = launch_plan(P, M, Zc, T)
+    plan = launch_plan(P, M, Zc, T, build.sm_count(pose.device))
     if len(params) != N_PARAMS:
         raise ValueError(f"map_update2d: {len(params)} params, "
                          f"need {N_PARAMS}")

@@ -5,9 +5,11 @@ Port of the JAX package's Pallas kernel ``ops/pallas/merge2d.py``.  The
 kernel (``csrc/merge2d.cu``) runs the whole pass loop per particle in one
 CTA; the twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`.  Two
 forms, chosen by :func:`launch_plan` from the shape: the small form (N <=
-1,024: one thread per slot, fields and masks in shared memory) and the
-large form (any N above: the same statements, fields and masks in a
-global workspace the wrapper allocates on the launch's stream).
+1,024: one thread per slot, fields and the gate bit mask in shared memory)
+and the large form (any N above: the same rules and arithmetic with a pair
+search that needs no mask, the gate fields, claims and bits in shared
+memory up to 9,535 slots, past that in a global workspace the wrapper
+allocates on the launch's stream).
 
 :func:`merge2d` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; nothing falls back.
@@ -28,6 +30,8 @@ SMALL_SLOTS = 1024  # the small form: one thread per slot
 MIN_THREADS = 512  # 16 warps for the gate rows, two CTAs an SM
 LARGE_THREADS = 1024  # the large form's threads, striding over the slots
 SLOT_PLANES = 12   # per-slot words of the fields and the claims
+LARGE_HEADER = 16  # the large form's first shared bytes (hi, counts)
+FIELD_BYTES = 20   # a slot's gate fields: a float4 and a float
 
 # kernel launches made by merge2d (the twin does not count), and those of
 # them in the large form
@@ -55,19 +59,30 @@ def launch_plan(P: int, N: int) -> LaunchPlan:
     least 16 warps for the gate rows; shared memory holds 12 slot planes,
     the gate bit mask (N rows of ceil(N / 32) words) and the safe-absorber
     words, as ``csrc/merge2d.cu`` lays it out.  The large form (N above):
-    ``LARGE_THREADS`` threads and no dynamic shared memory; the same
-    layout per particle in a global workspace of
-    :func:`build.workspace_bytes` (``P`` strides of the layout rounded up
-    to 16 bytes).  Raises ``ValueError`` for a shape neither form takes:
-    the mask of a particle is indexed with 32-bit ints, so N * ceil(N /
-    32) < 2**31."""
+    ``LARGE_THREADS`` threads and no mask.  Shared memory holds a 16-byte
+    header, the gate fields (``FIELD_BYTES`` a slot), the claims (4 bytes
+    a slot), the alive bits, the safe bits and the list of safe words (12
+    bytes per 32 slots) while they fit, up to 9,535 slots; past that the
+    gate fields, and past 53,125 slots the claims, bits and list too, go to
+    a global workspace
+    of :func:`build.workspace_bytes` (``P`` parts, each rounded up to 16
+    bytes).  The output buffer holds the covariances and weights.  Raises
+    ``ValueError`` for a shape neither form takes: the shapes of the mask
+    forms (N * ceil(N / 32) < 2**31, as ``merge3d``'s), not empty."""
     words = -(-N // 32)
     if P < 1 or N < 1 or N * words >= 2**31:
         raise ValueError(f"merge2d: no launch for P={P}, N={N}")
-    layout = 4 * (SLOT_PLANES * N + N * words + words)
     if N > SMALL_SLOTS:
-        return LaunchPlan(LARGE_THREADS, 0, "large",
-                          build.workspace_bytes(P, layout))
+        fields, claims = FIELD_BYTES * N, 4 * N + 12 * words
+        if LARGE_HEADER + fields + claims <= build.MAX_SMEM:
+            return LaunchPlan(LARGE_THREADS, LARGE_HEADER + fields + claims,
+                              "large")
+        if LARGE_HEADER + claims <= build.MAX_SMEM:
+            return LaunchPlan(LARGE_THREADS, LARGE_HEADER + claims, "large",
+                              build.workspace_bytes(P, fields))
+        return LaunchPlan(LARGE_THREADS, LARGE_HEADER, "large",
+                          build.workspace_bytes(P, fields + claims))
+    layout = 4 * (SLOT_PLANES * N + N * words + words)
     if layout > build.MAX_SMEM:
         raise ValueError(f"merge2d: N={N} needs {layout} B of shared memory")
     return LaunchPlan(max(MIN_THREADS, 32 * words), layout)

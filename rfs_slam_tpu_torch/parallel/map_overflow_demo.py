@@ -39,6 +39,7 @@ import torch
 
 from rfs_slam_tpu_torch.apps import example_step as ex
 from rfs_slam_tpu_torch.filters.rbphd import RBPHDConfig
+from rfs_slam_tpu_torch.ops.kernels import build
 from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu
 from rfs_slam_tpu_torch.ops.kernels import merge2d as mg
 
@@ -58,15 +59,16 @@ def analytic(p: int, m: int, zc: int) -> dict:
             "planes_bytes": planes}
 
 
-def forms(p: int, m: int, zc: int, shape=(1, 1)) -> dict:
+def forms(p: int, m: int, zc: int, shape=(1, 1), sms: int = 0) -> dict:
     """The launch plan each kernel takes on a rank of an ``A x B`` mesh
-    (``shape``): its form, threads, shared memory and workspace bytes.
-    The map update runs on the rank's ``M / B`` slots, the merge on the
-    map gathered whole, each on ``P / A`` particles."""
+    (``shape``) of cards with ``sms`` SMs each (0: not known): its form,
+    threads, shared memory and workspace bytes.  The map update runs on
+    the rank's ``M / B`` slots, the merge on the map gathered whole, each
+    on ``P / A`` particles."""
     a, b = shape
     t = min(RBPHDConfig.new_per_z, m)
-    return {"map_update2d": mu.launch_plan(p // a, m // b, zc,
-                                           t)._asdict(),
+    return {"map_update2d": mu.launch_plan(p // a, m // b, zc, t,
+                                           sms)._asdict(),
             "merge2d": mg.launch_plan(p // a, m)._asdict()}
 
 
@@ -230,9 +232,10 @@ def main(argv=None) -> int:
         print(card_line(), flush=True)
     else:
         torch.set_num_threads(1)
+    sms = build.sm_count(0) if args.device == "cuda" else 0
     rec = {"mode": args.mode, "analytic": analytic(p, m, zc),
            "forms": forms(p, m, zc, args.mesh_shape if args.mode == "mesh"
-                          else (1, 1))}
+                          else (1, 1), sms)}
     if args.mode == "card":
         dev = torch.device(args.device)
         rec.update(run_card(p, m, zc, args.steps, dev))

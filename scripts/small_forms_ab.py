@@ -5,8 +5,9 @@ in one process.
 The earlier ``csrc/`` is read from ``--old``.  Both it and the package's
 ``rfs_slam_tpu_torch/csrc/`` are built with the package's nvcc flags into
 ``build/ab/lib/``, and each is called through its own C entry: the entries
-before the large forms take no workspace, and the script tells them apart
-by their source.  On every case the two builds' outputs must be equal to
+before the large forms take no workspace, after their redesign the map
+update's also takes a stats pointer, and the script tells them apart by
+their source.  On every case the two builds' outputs must be equal to
 the bit; then each is timed in turns (old, new, new, old) with
 ``chip_smoke.cuda_ms``, the stream held busy first.  The cases are random
 inputs at the main paths' shapes:
@@ -64,8 +65,10 @@ def build_all(srcs):
             src = os.path.join(d, f"{k}.cu")
             with open(src) as f:
                 text = f.read()
+            # the merges' workspace; the map update's stash and stats
+            # pointers (how many)
             ws_abi = ("ws_bytes" in text if k != "map_update2d"
-                      else "void* stash" in text)
+                      else ("void* stash" in text) + ("int* stats" in text))
             out = os.path.join(LIB_DIR, f"{k}-{ver}.so")
             flags = build.NVCC_FLAGS + build.EXTRA_FLAGS.get(k, [])
             # the source's own directory first: its shared header
@@ -115,7 +118,7 @@ def map_update_call(lib, a, stream):
     err = fn.map_update2d_launch(
         *(ctypes.c_int(v) for v in (P, M, Zc, T, plan.threads, plan.smem,
                                     plan.zb)),
-        mu._c_params(tuple(params)), *ptrs, *([vp(None)] if ws_abi else []),
+        mu._c_params(tuple(params)), *ptrs, *[vp(None)] * ws_abi,
         vp(stream))
     if err != 0:
         raise RuntimeError(f"map_update2d launch failed: CUDA error {err}")

@@ -47,7 +47,9 @@ LARGE_PLANS = ([("map_update2d", (64, m, zc)) for m in (1025, 2048, 4096,
                                                          8192)
                 for zc in (16, 40)]
                + [(k, (64, n)) for k in ("merge2d", "merge3d")
-                  for n in (1025, 2048, 4096, 8192)])
+                  for n in (1025, 2048, 4096, 8192)]
+               + [("merge2d", (2, 12288)), ("merge2d", (1, 53248))])
+H100_SMS = 132   # an H100 SXM's SMs
 
 
 def small_plan(kernel, shape):
@@ -65,7 +67,7 @@ def small_plan(kernel, shape):
 
 def plan_of(kernel, shape):
     if kernel == "map_update2d":
-        return mu.launch_plan(*shape, 8)
+        return mu.launch_plan(*shape, 8, H100_SMS)
     return {"merge2d": m2, "merge3d": m3}[kernel].launch_plan(*shape)
 
 
@@ -73,11 +75,21 @@ def plan_of(kernel, shape):
 def test_launch_plans(kernel, shape):
     """At M (N) <= 1,024 each launch plan is the parent's (threads, shared
     memory, zb), in the small form without a workspace.  Above, the large
-    form: shared memory within Hopper's limit, a multiple of 32 threads
-    within the kernel's bound, and the workspace as documented: the merge
-    kernels' shared-memory layout per particle, each rounded up to 16
-    bytes; the map update's 10 stash planes where the stash no longer fits
-    in shared memory."""
+    form within Hopper's limit, as documented.  merge2d: no mask; a
+    16-byte header, 20 bytes of gate fields and 4 of claims a slot and
+    three words per 32 slots (the alive bits, the safe bits, the list of
+    safe words) in shared memory, no workspace up to 9,535 slots (199,696
+    B at N=8,192, where the mask form took 562,102,272 B of workspace at
+    P=64); past that the gate fields in the workspace, and past 53,125
+    slots all of it.  merge3d: its shared-memory layout per
+    particle in the workspace, each rounded up to 16 bytes.  map_update2d:
+    512 threads; shared memory (Hopper's limit at 64 particles on a card
+    of 132 SMs, each CTA with an SM of its own; 113 KB where the SMs are
+    not known) holds the fixed part (4 words a measurement, two bit words
+    per 32 slots, a word a thread) and, for a list of 32 ceil(M / 32)
+    entries, the 11-word stash and a column, with no workspace; or, where
+    that does not fit, a column, and a workspace for the stash of every
+    entry, 44 bytes each."""
     plan = plan_of(kernel, shape)
     if shape[1] <= 1024:
         assert tuple(plan) == small_plan(kernel, shape)
@@ -87,23 +99,119 @@ def test_launch_plans(kernel, shape):
     n = shape[1]
     if kernel == "map_update2d":
         p, m, zc = shape
-        assert 32 <= plan.threads <= mu.MAX_THREADS
-        zb = max(1, min(zc, mu.TABLE_BYTES // (4 * m)))
-        assert plan.zb == zb
-        picks = 16 * 32 * -(-m // 1024)
-        with_stash = 4 * (3 * zc + 10 * m + words(m) + zb * m + picks)
-        if with_stash <= build.MAX_SMEM:
-            assert (plan.smem, plan.workspace) == (with_stash, 0)
+        assert plan.threads == mu.MAX_THREADS
+        assert mu.launch_plan(*shape, 8).smem <= mu.LARGE_SMEM
+        fixed = 4 * zc + 2 * words(m) + mu.MAX_THREADS
+        room = plan.smem // 4 - fixed     # words for the stash and table
+        n = 32 * words(m)                 # the list's most entries
+        if 4 * (fixed + 12 * n) <= build.MAX_SMEM:
+            assert plan.workspace == 0
+            # the stash of every entry and a column, no more than the whole
+            # table beside it needs
+            assert 12 * n <= room <= max(12, 11 + zc) * n
+            assert plan.zb == min(zc, (room - 11 * n) // n) >= 1
         else:
-            assert plan.smem == with_stash - 40 * m
-            assert plan.workspace == 40 * p * m
+            assert plan.workspace == 44 * p * n
+            assert n <= room <= max(1, zc) * n
+            assert plan.zb == min(zc, room // n) >= 1
+    elif kernel == "merge2d":
+        p = shape[0]
+        assert plan.threads == 1024
+        fields, claims = 20 * n, 4 * n + 12 * words(n)
+        if n <= 9535:
+            assert plan.smem == 16 + fields + claims and plan.workspace == 0
+        elif n <= 53125:
+            assert plan.smem == 16 + claims
+            assert plan.workspace == p * -(-fields // 16) * 16
+        else:
+            assert plan.smem == 16
+            assert plan.workspace == p * -(-(fields + claims) // 16) * 16
+        if n == 8192:
+            assert plan.smem == 199_696
     else:
-        planes = 12 if kernel == "merge2d" else 19
         assert plan.threads == 1024 and plan.smem == 0
-        layout = 4 * (planes * n + n * words(n) + words(n))
+        layout = 4 * (19 * n + n * words(n) + words(n))
         assert plan.workspace == shape[0] * -(-layout // 16) * 16
-        # the mask dominates: ~512 MiB at P=64, N=8,192 for merge2d
+        # the mask dominates: 576,782,336 B at P=64, N=8,192
         assert plan.workspace >= shape[0] * 4 * n * words(n)
+
+
+def sweeps(gate, alive):
+    """A numpy model of merge2d's large-form search on one particle
+    (``csrc/merge_bitmask.cuh``), word by word as a warp walks it.  Sweep
+    A (``safe_sweep``) walks a row's words down from the top one, skips
+    words with no alive slot and stops at the first word whose ballot over
+    the alive lanes k < j holds a gated pair.  The claims
+    (``claim_sweep``): each unsafe row walks the list of words holding a
+    safe slot (``safe_words``) up to j, tests only the safe lanes and takes
+    the lowest lane of the first word with a hit; each absorber keeps its
+    lowest claiming row.  ``gate [k, j]``: the pair's two-way test.  Returns ``(first_i [j], j_star [i])``, N where none."""
+    N = len(alive)
+    hi = int(np.nonzero(alive)[0].max()) + 1 if alive.any() else 0
+    lanes = np.arange(32)
+
+    def word(bits, w):
+        k = 32 * w + lanes
+        return k, np.where(k < N, bits[np.minimum(k, N - 1)], False)
+
+    safe = np.zeros(N, bool)
+    for j in range(hi):
+        if not alive[j]:
+            continue
+        found = False
+        for w in reversed(range(words(j))):
+            k, ak = word(alive, w)
+            if not ak.any():
+                continue
+            if (ak & (k < j) & gate[np.minimum(k, N - 1), j]).any():
+                found = True
+                break
+        safe[j] = not found
+    first = np.full(N, N)
+    j_star = np.full(N, N)
+    listed = [w for w in range(words(hi)) if word(safe, w)[1].any()]
+    for j in np.nonzero(alive & ~safe)[0]:
+        for w in listed:
+            if 32 * w >= j:
+                break
+            k, sk = word(safe, w)
+            hit = sk & (k < j) & gate[np.minimum(k, N - 1), j]
+            if hit.any():
+                first[j] = 32 * w + int(np.argmax(hit))
+                break
+    for j in np.nonzero(first < N)[0]:
+        j_star[first[j]] = min(j_star[first[j]], j)
+    return first, j_star
+
+
+def test_merge2d_sweeps_match_twin(rng):
+    """The model of the mask-free search (:func:`sweeps`) picks exactly
+    the twin's ``first_i`` and ``j_star`` (``ops/gm.py::_merge_pairs``,
+    the pair choice of ``_merge_pass``) on every pass of the fixpoint:
+    random mixtures crowded enough to merge, and chains gated across
+    32-slot words, at N=160 (five words) with dead slots between alive
+    ones in later passes."""
+    d = mixture_np(rng, 2, 6, 160, (60, 161), spread=1.2)
+    mean, alive = d["mean"], d["alive"]
+    for p, s0 in ((4, 28), (5, 60)):       # chains across words 0-1, 1-2
+        mean[0, p, s0:s0 + 9] = 0.3 * np.arange(9)
+        mean[1, p, s0:s0 + 9] = 0.0
+        d["cov"][:, p, s0:s0 + 9] = np.array([0.05, 0.0, 0.05])[:, None]
+        alive[p, :s0 + 9] = True
+    gm = GMState(**{k: t(v) for k, v in d.items()})
+    passes = 0
+    for _ in range(8):
+        gate, first_i, j_star = gm_ops._merge_pairs(gm, 1.5 * 1.5)
+        for p in range(gm.w.shape[0]):
+            a = gm.alive[p].numpy()
+            f, js = sweeps(gate[p].numpy(), a)
+            np.testing.assert_array_equal(f[a], first_i[p].numpy()[a])
+            np.testing.assert_array_equal(js, j_star[p].numpy())
+        gm, n = gm_ops._merge_pass(gm, 1.5 * 1.5, 1.5)
+        passes += 1
+        if int(n) == 0:
+            break
+    assert passes >= 3                     # chains take several passes
 
 
 def mixture_np(rng, D, P_, N, alive_range, spread=3.0):
