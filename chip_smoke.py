@@ -17,7 +17,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    order, the picks merged) on the same mid-run state in two blocks of 64
    slots, against its twin and against the one launch (unused flags and
    positive picks equal), and the device time of one block's two launches
-   beside its twins';
+   beside its twins' and their bound (``map_update_bound`` on the block's
+   inputs and the head's and tail's outputs);
 4. ``merge2d``: kernel against its plain twin on random mixtures with
    20-120 alive slots, on the same mid-run state, and on edge mixtures
    (gated chains across 32-slot words, every slot alive, N=100, a
@@ -48,10 +49,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    torch's sync debug mode raising on any read-back inside the loop:
    steps/s, the median best-particle position error over steps >= 150
    beside dead reckoning's, which it must beat; the ``hungarian`` kernel
-   launches once per update with measurements; then generator seeds 1-15
-   (the same run, other draws, in three worker processes), which must
-   beat dead reckoning too, and the median of the 16 errors is held to a
-   divergence bound set from the JAX package's runs;
+   launches once per update with measurements; generator seeds 1-15
+   (the same run, other draws) run later in the seed workers, beside
+   phases 10 and 13, and must beat dead reckoning too, and the median of
+   the 16 errors is held to a divergence bound set from the JAX
+   package's runs;
 8. MH-FastSLAM the same way (H=3, P=200 live of P_cap=600, child cap 6,
    lane budget 200) over the first 2,000 steps (the depth cut), four
    launches an update (the gated root, Murty's root and two waves), with
@@ -64,7 +66,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    set to raise: frames/s, the RMSE against the GPS beside dead
    reckoning's, ``hungarian`` launches (one for each frame with
    measurements) and the best particle's alive landmarks; generator seeds
-   1-7 run later in seven worker processes, beside phases 10 and 13, and
+   1-7 run later in the seed workers, beside phases 10 and 13, and
    the median RMSE of the eight runs is held below dead reckoning's and
    within a divergence bound from the JAX package's runs (section 6 of
    PERF.md);
@@ -139,13 +141,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 16. large maps, the kernels' large forms (M or N above 1,024 slots):
    (1) each against its twin on random states (M, N = 1,025 and 2,048 at
    P=16 and 8,192 at P=2; the merges also with every slot alive at
-   N=2,048) and the block form as head and tail on two blocks of 2,048 of
-   M=4,096 against its twin and the one launch, with the kernel-against-
-   twin tolerances of phases 3, 4 and 4b; (2) phase 3's mid-run state and
-   merge input and phase 5d's Victoria Park merge input padded with dead
-   slots to 2,048: on their slots the large forms' outputs equal the
-   small forms' to the bit (every plane, the column sums, the unused
-   flags, the alive sets, every positive pick and its weight), each form
+   N=2,048; ``merge2d`` also at 10,000 slots; each merge launch with its
+   tier, where its fixpoint data lies, and its workspace bytes:
+   ``merge3d``'s in shared memory up to 5,756 slots, its gate fields in
+   the workspace at 8,192) and the block form as head and tail on two
+   blocks of 2,048 of M=4,096 against its twin and the one launch, with
+   the kernel-against-twin tolerances of phases 3, 4 and 4b; (2) phase
+   3's mid-run state and merge input and phase 5d's Victoria Park merge
+   input padded with dead slots to 2,048: on their slots the large
+   forms' outputs equal the small forms' to the bit (every plane, the
+   column sums, the unused flags, the alive sets, every positive pick and
+   its weight), each form
    timed there beside its twin and bound; (3) ``map_overflow_demo``'s card
    mode at P=64, M=8,192, Zc=16 for 20 steps under the sync debug mode,
    both 2-D kernels in their large form once a step, its peak device
@@ -230,7 +236,6 @@ FS_DIVERGENCE_BOUND_M = 0.2
 MH_DIVERGENCE_BOUND_M = 0.2
 FS_BOUND_SEEDS = tuple(range(1, 16))  # beside the main path's seed 0
 MH_BOUND_SEEDS = (1, 2, 3)
-SEED_WORKERS = 3           # processes running the bound's seeds
 FS_MID_STEP = 1500         # the DA tables checked and timed
 # Victoria Park FastSLAM (phases 11-13) on the seed-0 synthetic stream at
 # the app's width (P=200, M=512, Zc=24, NMZ=32).  Bounds from the JAX
@@ -242,7 +247,9 @@ VP_FS_FRAMES = 2000        # of 7,230: the depth cut
 VP_MH_FRAMES = 500         # MH-FastSLAM's depth cut
 VP_FS_BOUND_SEEDS = tuple(range(1, 8))   # beside the main path's seed 0
 VP_MH_BOUND_SEEDS = tuple(range(1, 8))
-VP_SEED_WORKERS = 7        # processes running the VP bounds' seeds
+# processes running the bounds' other seeds (2-D and VP, one task a
+# seed), beside phases 10 and 13, which hold no time to a bound
+SEED_WORKERS = 7
 # FastSLAM 1.0: JAX keys 0-31 in groups of 8, medians 0.857, 1.700, 0.612,
 # 1.541 m (a random 8-key median exceeds 2.0 m 3.8% of the time).
 VP_FS_DIVERGENCE_BOUND_M = 2.0
@@ -291,10 +298,18 @@ MERGE_TRACE_CHUNK = 8          # particles a merge trace takes at a time
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: padded to
 # LARGE_PAD slots, and at the overflow shape
 PARENT_LARGE_MS = {"map_update2d": (0.067808, 0.95731),
-                   "merge2d": (0.044768, 17.110), "merge3d": (0.044032, None)}
+                   "merge2d": (0.044768, 17.110), "merge3d": (0.043040, None)}
+T_LOADED = time.perf_counter()   # what elapsed() counts from
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+
+
+def elapsed(what: str) -> None:
+    """Print the seconds since this module was loaded, after ``what``:
+    where the call's time limit goes."""
+    print(f"elapsed: {time.perf_counter() - T_LOADED:.1f} s after {what}",
+          flush=True)
 
 
 def cuda_ms(torch, fn, n: int = 25, warmup: int = 3,
@@ -617,7 +632,8 @@ def check_map_update_block(torch, mu, filt, state, z, z_mask):
     and the positive picks equal) and against the one-launch kernel (the
     unused flags and the positive picks equal); then the device time of
     one block's two launches (one rank's share, P=200, M=64) beside its
-    twin's.  Returns ``(max abs error, ms, plain_ms)``."""
+    twin's and the bound of that work.  Returns ``(max abs error, ms,
+    plain_ms, bound_ms, bound_by)``."""
     gm, cfg = state.gm, filt.cfg
     args = (state.particles.pose, gm.mean[0], gm.mean[1], gm.cov[0],
             gm.cov[1], gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask,
@@ -660,12 +676,24 @@ def check_map_update_block(torch, mu, filt, state, z, z_mask):
 
     ms, plain_ms = kernel_vs_twin_ms(torch, "map_update2d block", launches,
                                      twins)
+    # the bound of one block's map update: its inputs read once, the
+    # head's and the tail's outputs written once, the operations its
+    # cells need
+    tail = mu.map_update2d_tail(args[0], *blk[:6], blk[7], z, z_mask,
+                                args[11], col_sum, cfg.new_per_z, 0)
+    bound_ms, bound_by = map_update_bound(
+        (args[0], *blk, z, z_mask, args[11], cfg.new_per_z),
+        mu.FusedMapUpdate(
+            w=tail.w, w_prev=head.w_prev, pd=head.pd, col_sum=head.col_part,
+            unused=tail.unused, cand_w=tail.cand_w, cand_m=tail.cand_m,
+            K=head.K, cov_upd=head.cov_upd, z_exp=head.z_exp))
     rec = {"map_update2d_block": f"{MAP_BLOCKS} blocks of {Mb} slots",
            "particles": int(gm.w.shape[0]), "max_abs_err": max(errs),
            "block_ms": ms, "block_plain_ms": plain_ms,
+           "block_bound_ms": bound_ms, "block_bound_by": bound_by,
            "picks": int((k.cand_w > 0).sum())}
     print(json.dumps(rec), flush=True)
-    return max(errs), ms, plain_ms
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def random_mixtures(torch, GMState, rng, P, N, dev, n_alive=(20, 120),
@@ -754,11 +782,12 @@ def compare_merge2d(torch, mg, name, gm, thr, infl):
     return p, err
 
 
-def random_mixtures3(torch, GMState, rng, P, N, dev, n_alive=(40, 400)):
+def random_mixtures3(torch, GMState, rng, P, N, dev, n_alive=(40, 400),
+                     spread=3.0):
     """Random D=3 mixtures (tests/test_pallas_merge3d.py's: diameters
     0.2-1.0), ``n_alive`` (at most N) alive slots per particle, alive
-    first."""
-    mean = rng.uniform(-3, 3, size=(P, N, 3)).astype(np.float32)
+    first, x and y in a square of half-width ``spread``."""
+    mean = rng.uniform(-spread, spread, size=(P, N, 3)).astype(np.float32)
     mean[..., 2] = rng.uniform(0.2, 1.0, size=(P, N))
     A = rng.normal(size=(P, N, 3, 3)).astype(np.float32) * 0.2
     cov = A @ np.swapaxes(A, -1, -2) + 0.3 * np.eye(3, dtype=np.float32)
@@ -983,8 +1012,8 @@ def hungarian_per_update(filt):
 
 def fastslam_run(torch, loop, hk, kind, steps, dev, logged=False):
     """One FastSLAM run of :func:`fastslam_setup`, the step loop under
-    torch's sync debug mode (a read-back inside it raises), then the
-    divergence bound's other seeds in :data:`SEED_WORKERS` processes.
+    torch's sync debug mode (a read-back inside it raises); the
+    divergence bound's other seeds run later (:func:`submit_sim_seeds`).
     ``logged``: also keep what the reference's logs hold
     (``sim2d_common.log_recorder``).  Returns ``(filter, final state,
     device inputs, generator, the DA tables of FS_MID_STEP (or None), a
@@ -1047,17 +1076,6 @@ def fastslam_run(torch, loop, hk, kind, steps, dev, logged=False):
                state.particles.log_w))].sum())}
     if not finite:
         raise AssertionError(f"{kind}: non-finite outputs")
-    # the divergence bound's other draws: the same run, other seeds
-    seeds = FS_BOUND_SEEDS if kind == "fastslam" else MH_BOUND_SEEDS
-    parts = [seeds[i::SEED_WORKERS] for i in range(SEED_WORKERS)]
-    k = len(parts)
-    with concurrent.futures.ProcessPoolExecutor(
-            k, mp_context=multiprocessing.get_context("spawn")) as pool:
-        errs = list(pool.map(seed_worker, [kind] * k, [steps] * k, parts,
-                             [str(dev)] * k))
-    rec["seeds"] = [0] + [s for part in parts for s in part]
-    rec["seed_errors_m"] = [err] + [e for part in errs for e in part]
-    rec["median_of_seeds_m"] = float(np.median(rec["seed_errors_m"]))
     if logs is not None:
         logs = {k: v.cpu().numpy() for k, v in logs.items()}
     return filt, state, din, gen, mid.get("tables"), rec, logs, sim_cfg.dt
@@ -1152,6 +1170,29 @@ def vp_fastslam_run(torch, hk, plain, cfg_path, hypotheses, n_frames, seeds,
     return filt, state, stream, rec
 
 
+def submit_sim_seeds(pool, runs, dev):
+    """The 2-D FastSLAM bounds' other seeds, one task a seed on ``pool``:
+    ``runs`` holds ``(record, kind, steps)``; returns ``(record,
+    futures)`` pairs for :func:`collect_sim_seeds`."""
+    out = []
+    for rec, kind, steps in runs:
+        seeds = FS_BOUND_SEEDS if kind == "fastslam" else MH_BOUND_SEEDS
+        rec["seeds"] = [0, *seeds]
+        out.append((rec, [pool.submit(seed_worker, kind, steps, (s,),
+                                      str(dev)) for s in seeds]))
+    return out
+
+
+def collect_sim_seeds(submitted):
+    """Each record's seed errors (the main run's first) and their median,
+    printed with the record."""
+    for rec, futures in submitted:
+        rec["seed_errors_m"] = [rec["median_pose_err_m"]] + [
+            f.result()[0] for f in futures]
+        rec["median_of_seeds_m"] = float(np.median(rec["seed_errors_m"]))
+        print(json.dumps(rec), flush=True)
+
+
 def submit_vp_seeds(pool, plain, cfg_path, runs, dev):
     """The VP bounds' other seeds, one task a seed on ``pool``: ``runs``
     holds ``(record, hypotheses, frames)``; returns ``(record, futures)``
@@ -1171,9 +1212,9 @@ def collect_vp_seeds(submitted):
         print(json.dumps(rec), flush=True)
 
 
-def vp_seed_pool():
+def seed_pool():
     return concurrent.futures.ProcessPoolExecutor(
-        VP_SEED_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        SEED_WORKERS, mp_context=multiprocessing.get_context("spawn"))
 
 
 def bit_view(a):
@@ -1756,18 +1797,46 @@ def assert_bit_equal(torch, name, small, large, fields, n):
                                  f"the small form's")
 
 
+def merge_tier(plan):
+    """Where a merge's large-form ``plan`` keeps a particle's fixpoint
+    data (``csrc/merge_bitmask.cuh``'s tiers)."""
+    if plan.workspace == 0:
+        return "all in shared memory"
+    return ("all in the workspace" if plan.smem == 16
+            else "gate fields in the workspace")
+
+
+def large_merge3d(torch, m3, GMState, rng, P, N, dev, n_alive, tiers,
+                  what="random"):
+    """merge3d's large form against its twin on random mixtures at ``P``
+    x ``N``, its tier (added to ``tiers``) and workspace printed; returns
+    the largest error."""
+    plan = m3.launch_plan(P, N)
+    tier = merge_tier(plan)
+    tiers.add(tier)
+    print(json.dumps({"merge3d_large": what, "particles": P, "slots": N,
+                      "tier": tier, "workspace_bytes": plan.workspace}),
+          flush=True)
+    return compare_merge3d(
+        torch, m3, f"large {what} N={N}, {tier}", random_mixtures3(
+            torch, GMState, rng, P, N, dev, n_alive), 1.5, 1.5)[1]
+
+
 def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
     """Phase 16.1: each large form against its twin on random states
     (M or N = 1,025 and 2,048 at P=16, 8,192 at P=2; the merges also with
-    every slot alive at N=2,048, so that several passes run; merge2d also
-    past 9,535 slots, LARGE_WS_TWIN, where its gate fields go to the
-    workspace) and the block form as head and tail on 2 blocks of 2,048
-    of M=4,096, against its twin and the one launch.  Returns the largest
-    error of each kernel."""
+    every slot alive at N=2,048, so that several passes run; merge3d in
+    both tiers its twin can run, all in shared memory and, at 8,192, the
+    gate fields in the workspace; merge2d also past 9,535 slots,
+    LARGE_WS_TWIN, where its gate fields go to the workspace) and the
+    block form as head and tail on 2 blocks of 2,048 of M=4,096, against
+    its twin and the one launch.  Returns the largest error of each
+    kernel."""
     from rfs_slam_tpu_torch.ops.kernels import build
 
     rng = np.random.default_rng(16)
     errs = {"map_update2d": [], "merge2d": [], "merge3d": []}
+    tiers = set()      # merge3d's tiers the twin checks ran in
     params = filt._map_params
     for P, M, Zc in LARGE_TWIN_SHAPES:
         a = large_map_inputs(torch, rng, params, P, M, Zc, dev)
@@ -1784,16 +1853,16 @@ def check_large_forms(torch, mu, mg, m3, GMState, filt, dev):
         errs["merge2d"].append(compare_merge2d(
             torch, mg, f"large N={M}", random_mixtures(
                 torch, GMState, rng, P, M, dev, n_alive), 1.5, 1.5)[1])
-        errs["merge3d"].append(compare_merge3d(
-            torch, m3, f"large N={M}", random_mixtures3(
-                torch, GMState, rng, P, M, dev, n_alive), 1.5, 1.5)[1])
+        errs["merge3d"].append(large_merge3d(
+            torch, m3, GMState, rng, P, M, dev, n_alive, tiers))
     N = LARGE_PAD
     errs["merge2d"].append(compare_merge2d(
         torch, mg, f"all alive N={N}", random_mixtures(
             torch, GMState, rng, 16, N, dev, (N, N)), 1.5, 1.5)[1])
-    errs["merge3d"].append(compare_merge3d(
-        torch, m3, f"all alive N={N}", random_mixtures3(
-            torch, GMState, rng, 16, N, dev, (N, N)), 1.5, 1.5)[1])
+    errs["merge3d"].append(large_merge3d(
+        torch, m3, GMState, rng, 16, N, dev, (N, N), tiers, "all alive"))
+    if tiers != {"all in shared memory", "gate fields in the workspace"}:
+        raise AssertionError(f"merge3d: the twin checks ran in {tiers}")
     P, N, spread = LARGE_WS_TWIN
     plan = mg.launch_plan(P, N)
     if plan.workspace == 0:
@@ -1894,12 +1963,13 @@ def check_padding(torch, mu, mg, m3, gm_ops, filt, state, z, z_mask,
             lambda: kern(gp, thr, infl), lambda: twin(gp, thr, infl)),
             *merge_bound(gm_ops, gp, kl, thr, infl, inv_flop=inv_flop,
                          merge_flop=merge_flop, chunk=gp.w.shape[0]))
+        plan = (mg if name == "merge2d" else m3).launch_plan(*gp.w.shape)
         print(json.dumps({"padded": name, "slots": [g.capacity, n],
                           "alive": int(g.alive.sum()), "bit_equal": True,
                           "passes": merge_passes(gm_ops, gp, thr, infl,
                                                  gp.w.shape[0]),
-                          "workspace_bytes": (mg if name == "merge2d" else m3)
-                          .launch_plan(*gp.w.shape).workspace,
+                          "tier": merge_tier(plan),
+                          "workspace_bytes": plan.workspace,
                           "small_ms": cuda_ms(torch, lambda: kern(g, thr,
                                                                   infl)),
                           "large_ms": rows[name][1],
@@ -2118,6 +2188,7 @@ def main(argv=None) -> int:
     for name in names:
         secs, log = build.BUILD_LOG.get(name, (0.0, "(cached build)"))
         print(f"build {name}: {secs:.1f} s\n{log}", flush=True)
+    elapsed("phase 2, the build")
 
     sim_cfg = sim2d.Sim2DConfig()
     dt = sim_cfg.dt
@@ -2150,6 +2221,7 @@ def main(argv=None) -> int:
         vp_merge_input(torch, gm_ops, vp_filt, vp_state, stream,
                        VP_MIDRUN_FRAMES, dev), dev)
 
+    elapsed("phases 3-4b")
     # ---- 5. the full replay through both 2-D kernels
     gt, inputs = app.load_bl_dump(BL_DUMP)
     n_updates = int(np.asarray(inputs[2]).any(axis=1).sum())
@@ -2183,6 +2255,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"replay median pose error {err} m > "
                              f"{DIVERGENCE_BOUND_M} m")
 
+    elapsed("phase 5")
     # ---- 5c. the Victoria Park path, first VP_FRAMES frames
     frames = vp_app.head(stream, VP_FRAMES)
     n_meas_frames = int(frames.z_mask.any(axis=1).sum())
@@ -2240,6 +2313,7 @@ def main(argv=None) -> int:
         "rmse_m": vp_app.trajectory_rmse(scan_frames, scan_outs)[0]}),
         flush=True)
 
+    elapsed("phases 5c-5e")
     # ---- 7-8. FastSLAM 1.0 and MH-FastSLAM through the Hungarian kernel
     fs_filt, _, _, _, fs_tables, fs_rec, fs_logs, fs_dt = fastslam_run(
         torch, loop, hk, "fastslam", FS_STEPS, dev, logged=True)
@@ -2249,13 +2323,14 @@ def main(argv=None) -> int:
     for rec, bound_m in ((fs_rec, FS_DIVERGENCE_BOUND_M),
                          (mh_rec, MH_DIVERGENCE_BOUND_M)):
         rec["divergence_bound_m"] = bound_m
-        print(json.dumps(rec), flush=True)
     mh_inputs = recorded_update(torch, hk, mh_filt, mh_state, mh_din, mh_gen)
 
+    elapsed("phases 7-8")
     # ---- 11-12. Victoria Park FastSLAM 1.0 and MH-FastSLAM, main runs
     vp_runs, vp_tables, vp_fs = vp_fastslam_phases(torch, hk, vp_plain,
                                                    vp_cfg, dev)
 
+    elapsed("phases 11-12")
     # ---- 9. the Hungarian kernel against its twin (timed alone); the
     # kernel table's row is timed on the FastSLAM tables
     hk_row = check_hungarian(
@@ -2268,18 +2343,25 @@ def main(argv=None) -> int:
     # workers share the card
     library_phase(torch, hk, vp_fs, (fs_logs, fs_dt), dev)
 
-    # the VP bounds' seeds in worker processes, beside phases 10 and 13:
-    # neither holds a time to a bound
-    with vp_seed_pool() as pool:
-        submitted = submit_vp_seeds(pool, vp_plain, vp_cfg, vp_runs, dev)
+    # the bounds' other seeds in worker processes, beside phases 10 and
+    # 13: neither holds a time to a bound.  The longest runs first: VP
+    # FastSLAM 1.0's, then the rest
+    with seed_pool() as pool:
+        vp_submitted = submit_vp_seeds(pool, vp_plain, vp_cfg, vp_runs, dev)
+        sim_submitted = submit_sim_seeds(
+            pool, ((fs_rec, "fastslam", FS_STEPS),
+                   (mh_rec, "mhfastslam", MH_STEPS)), dev)
         # ---- 10. batchsim cells on the card
         batchsim_cells(torch, batchsim, (mu, mg, m3, hk), dev)
         # ---- 13. resume on the card, both Victoria Park apps
         vp_resume(torch, vp_plain, vp_cfg, dev)
-        collect_vp_seeds(submitted)
+        collect_sim_seeds(sim_submitted)
+        collect_vp_seeds(vp_submitted)
 
+    elapsed("phases 9, 14, 10, 13 and the seeds")
     # ---- 15. the one-hypothesis paths sharded, once the card is free
     sharded_phase(torch)
+    elapsed("phase 15")
 
     # ---- 16. large maps: the kernels' large forms (M, N > 1,024)
     t16 = time.perf_counter()
@@ -2298,6 +2380,7 @@ def main(argv=None) -> int:
             "before_redesign": PARENT_LARGE_MS[k]} for k in large_rows},
         "card": card}), flush=True)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+    elapsed("phase 16")
 
     # the accuracy of phases 7-8 (checked once every phase has printed):
     # every seed's run below dead reckoning, their median within the bound
@@ -2349,7 +2432,8 @@ def main(argv=None) -> int:
             "floor_ms": floor_ms, "library_ms": None})
     # the block form: one rank's two launches on its 64 slots (phase 3b)
     kernels[0].update(block_max_abs_err=mu_block[0], block_ms=mu_block[1],
-                      block_plain_ms=mu_block[2])
+                      block_plain_ms=mu_block[2], block_bound_ms=mu_block[3],
+                      block_bound_by=mu_block[4])
     # the large forms (phase 16): timed on the padded mid-run states and at
     # the overflow shape; launches in the large-map paths (16.4-16.5), and
     # apart from them those of the overflow run (16.3)

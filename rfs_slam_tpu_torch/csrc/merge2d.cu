@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
   using merge_bitmask::for_slots;
 
   if (threadIdx.x == 0) s_hi = 0;
-  for_slots<false>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     const size_t pi = p0 + i;
     s_g[i].x = mean[pi];
     s_g[i].y = mean[PN + pi];
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
     s_alive[i] = alive_in[pi] ? 1 : 0;
   });
   __syncthreads();
-  for_slots<false>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     if (s_alive[i]) atomicMax(&s_hi, i + 1);
   });
   __syncthreads();
@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
   const Gate2 gate{s_g, s_i11, t2};
 
   // S^-1: once here, then again only where a merge changed S
-  for_slots<false>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     invert(s_p00[i], s_p01[i], s_p11[i], s_g[i], s_i11[i]);
     s_jstar[i] = N;
   });
@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
   for (int pass = 0; pass < max_passes; ++pass) {
     merge_bitmask::gate_rows(gate, s_alive, hi, W, s_gate, s_safe);
     __syncthreads();
-    for_slots<false>(hi, [&](int i) {
+    for_slots(hi, [&](int i) {
       merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
     });
     __syncthreads();
@@ -173,7 +173,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
     // absorbs nothing: each absorber alone reads its fields and its
     // partner's, and writes its own, so reads and writes need no barrier.
     bool any = false;
-    for_slots<false>(N, [&](int i) {
+    for_slots(N, [&](int i) {
       const int js = s_jstar[i];
       if (js < N) {
         const float w1 = s_w[i], w2 = s_w[js];
@@ -211,7 +211,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
     if (!__syncthreads_or(any)) break;
   }
 
-  for_slots<false>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     const size_t pi = p0 + i;
     out[pi] = s_g[i].x;
     out[PN + pi] = s_g[i].y;
@@ -224,38 +224,11 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_kernel(
   });
 }
 
-// Where merge2d_large keeps a particle's data (large_tier): all in
-// shared memory; the gate fields in the workspace; all in the workspace.
-constexpr int kAllShared = 0, kFieldsGlobal = 1, kAllGlobal = 2;
-// the opt-in limit of a Hopper block's shared memory; the large form's
-// header (hi and the count of listed safe words) in the first 16 bytes
-// keeps the float4 fields aligned
-constexpr size_t kMaxSmem = 232448, kHeader = 16;
-
-// bytes a particle: the gate fields (float4 + float a slot), and the
-// claims, the alive bits, the safe bits and the list of safe words
-size_t field_bytes(int N) {
-  return 20 * static_cast<size_t>(N);
-}
-size_t claim_bytes(int N) {
-  return 4 * static_cast<size_t>(N) +
-         12 * static_cast<size_t>(merge_bitmask::words(N));
-}
-int large_tier(int N) {
-  if (kHeader + field_bytes(N) + claim_bytes(N) <= kMaxSmem) return kAllShared;
-  return kHeader + claim_bytes(N) <= kMaxSmem ? kFieldsGlobal : kAllGlobal;
-}
-size_t large_smem(int tier, int N) {
-  return kHeader + (tier == kAllShared ? field_bytes(N) + claim_bytes(N)
-                    : tier == kFieldsGlobal ? claim_bytes(N) : 0);
-}
-// float4s of a particle's part of the workspace
-size_t large_stride(int tier, int N) {
-  const size_t b = tier == kAllShared ? 0
-                   : tier == kFieldsGlobal ? field_bytes(N)
-                                           : field_bytes(N) + claim_bytes(N);
-  return (b + 15) / 16;
-}
+using merge_bitmask::kAllShared;
+using merge_bitmask::kFieldsGlobal;
+using merge_bitmask::kAllGlobal;
+// bytes of a slot's gate fields: a float4 and a float
+constexpr size_t kFieldBytes = 20;
 
 // The large form (N > 1024): see the file's head.  Shared memory (or, by
 // kTier, this particle's part of ws, stride float4s): hi and the count of
@@ -390,8 +363,8 @@ __global__ void __launch_bounds__(kMaxThreads) merge2d_large(
 // threads (a multiple of 32; at least N in the small form), smem and the
 // workspace come from the wrapper's launch_plan.  The form follows from
 // N: the small form (N <= 1024) keeps fields and masks in smem bytes of
-// shared memory; the large form in smem (at least large_smem) and, past
-// 9,535 slots, in ws (ws_bytes, at least P * 16 * large_stride).
+// shared memory; the large form in smem and, past 9,535 slots, in ws
+// (ws_bytes), as merge_bitmask::large_layout checks.
 extern "C" int merge2d_launch(int P, int N, int threads, int smem, float t2,
                               float infl, int max_passes, const void* mean,
                               const void* cov, const void* w, const void* wp,
@@ -419,15 +392,12 @@ extern "C" int merge2d_launch(int P, int N, int threads, int smem, float t2,
                                              wi, wpi, ai, o, ao);
     return static_cast<int>(cudaGetLastError());
   }
-  const int tier = large_tier(N);
-  const size_t stride = large_stride(tier, N);
-  if (static_cast<size_t>(smem) < large_smem(tier, N) ||
-      (stride > 0 && (ws == nullptr ||
-                      ws_bytes < P * stride * sizeof(float4))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tier == kAllShared      ? merge2d_large<kAllShared>
-                : tier == kFieldsGlobal ? merge2d_large<kFieldsGlobal>
-                                        : merge2d_large<kAllGlobal>;
+  const auto lay =
+      merge_bitmask::large_layout(kFieldBytes * N, P, N, smem, ws, ws_bytes);
+  if (!lay.ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lay.tier == kAllShared      ? merge2d_large<kAllShared>
+                : lay.tier == kFieldsGlobal ? merge2d_large<kFieldsGlobal>
+                                            : merge2d_large<kAllGlobal>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -435,6 +405,6 @@ extern "C" int merge2d_launch(int P, int N, int threads, int smem, float t2,
   }
   kernel<<<P, threads, smem, st>>>(t2, infl, max_passes, N, m, c, wi, wpi,
                                    ai, o, ao, static_cast<float4*>(ws),
-                                   stride);
+                                   lay.stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,11 +48,23 @@
 // slot (exact: slots only die during the fixpoint), which replaces the TPU's
 // static absorber tiers; the header bounds the j-axis the same way.
 //
-// Large form (N > 1024): merge2d.cu's.  The same kernel (kLarge) keeps the
-// fields, the claims and the mask in the particle's part of a global
-// workspace laid out as the small form's shared memory (680,192 B a
-// particle at N=2048, 9,012,224 B at N=8192), with 1024 threads striding
-// over the slots; the statements are the small form's.
+// Large form (N > 1024; merge3d_large): merge2d.cu's large form with this
+// file's gate.  No mask: safe_sweep2 (two rows a warp, each down from j to
+// its first gated partner), safe_words and claim_sweep (each unsafe row up
+// the listed safe words, safe lanes only) of merge_bitmask.cuh, Gate3's
+// arithmetic, so the same claims.  What the pass loop touches stays in
+// shared memory: the gate fields (two float4 and a float, 36 B a slot),
+// the claims (4 B), the alive bits, the safe bits and the list of safe
+// words (82,704 B at N=2048 with the 16-byte header, ~40.4 B a slot: up
+// to 5,756 slots).  The covariances, the weights and w_prev are touched
+// only by absorbers: they are copied once into the output buffer and
+// merged there in place, and S^-1 is computed at entry only for alive
+// slots.  Past 5,756 slots the gate fields, and past 53,125 the rest too,
+// move to a global workspace (merge_bitmask::large_tier, the wrapper's
+// launch_plan) through the same code.  One CTA a particle, its 1024
+// threads striding over the slots; the rules and the arithmetic are the
+// small form's, so a map padded with dead slots merges to the same bits in
+// either form.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,32 +129,21 @@ __device__ __forceinline__ void invert(const float* c, float4& ga, float4& gb,
   i22 = (a * d - b * b) / det;
 }
 
-// The words of one particle's fields, claims and masks: 19 slot planes,
-// the gate bit mask [N, W] and the safe-absorber words [W].  The small
-// form's shared memory; the large form's workspace stride, rounded up to
-// whole float4s so that every particle's float4 planes are aligned.
-__host__ __device__ constexpr size_t particle_words(int N, int W) {
-  return 19 * static_cast<size_t>(N) + static_cast<size_t>(N) * W + W;
-}
-
 // inputs: mean [3, P, N], cov [6, P, N], w, w_prev [P, N]; out: one float
 // buffer of 11 planes [P, N] (mean x/y/d, cov 00/01/02/11/12/22, w, w_prev).
-// kLarge: the fields and masks live in this particle's part of the global
-// workspace ws (stride float4s a particle) instead of shared memory, and
-// the slot-wise phases stride over the slots (for_slots); the small form
-// takes one slot a thread.
-template <bool kLarge>
+// The small form: one thread a slot (blockDim >= N), its shared memory 19
+// slot planes, the gate bit mask [N, W] and the safe-absorber words [W].
 __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     float t2, float infl, int max_passes, int N,
     const float* __restrict__ mean, const float* __restrict__ cov,
     const float* __restrict__ w_in, const float* __restrict__ wp_in,
     const bool* __restrict__ alive_in, float* __restrict__ out,
-    bool* __restrict__ alive_out, float4* __restrict__ ws, size_t stride) {
+    bool* __restrict__ alive_out) {
   // the layout (the wrapper's launch_plan sizes it the same way)
   const int W = merge_bitmask::words(N);
   extern __shared__ float4 smem[];
   // (x, y, d, S^-1_00), then (2 S^-1_01, 2 S^-1_02, S^-1_11, 2 S^-1_12)
-  float4* s_ga = kLarge ? ws + blockIdx.x * stride : smem;
+  float4* s_ga = smem;
   float4* s_gb = s_ga + N;
   float* s_i22 = reinterpret_cast<float*>(s_gb + N);
   float* s_cov = s_i22 + N;           // kCov planes of N
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
 
   // S^-1: once here, then again only where a merge changed S
   if (threadIdx.x == 0) s_hi = 0;
-  for_slots<kLarge>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     const size_t pi = p0 + i;
     float c[kCov];
     #pragma unroll
@@ -179,7 +180,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
   });
   merge_bitmask::clear_safe(s_safe, W);
   __syncthreads();
-  for_slots<kLarge>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     if (s_alive[i]) atomicMax(&s_hi, i + 1);
   });
   __syncthreads();
@@ -190,7 +191,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     merge_bitmask::gate_rows(gate, s_alive, hi, W, s_gate, s_safe);
     __syncthreads();
     // a safe slot has no gated partner below it, so nothing to claim
-    for_slots<kLarge>(hi, [&](int i) {
+    for_slots(hi, [&](int i) {
       if (!((s_safe[i >> 5] >> (i & 31)) & 1u))
         merge_bitmask::claim(i, s_alive, hi, W, s_gate, s_safe, s_jstar);
     });
@@ -200,7 +201,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     // absorbs nothing: each absorber alone reads its fields and its
     // partner's, and writes its own, so reads and writes need no barrier.
     bool any = false;
-    for_slots<kLarge>(N, [&](int i) {
+    for_slots(N, [&](int i) {
       const int js = s_jstar[i];
       if (js < N) {
         const float w1 = s_w[i], w2 = s_w[js];
@@ -249,7 +250,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
     if (!__syncthreads_or(any)) break;
   }
 
-  for_slots<kLarge>(N, [&](int i) {
+  for_slots(N, [&](int i) {
     const size_t pi = p0 + i;
     out[pi] = s_ga[i].x;
     out[PN + pi] = s_ga[i].y;
@@ -262,37 +263,199 @@ __global__ void __launch_bounds__(kMaxThreads) merge3d_kernel(
   });
 }
 
+using merge_bitmask::kAllShared;
+using merge_bitmask::kFieldsGlobal;
+using merge_bitmask::kAllGlobal;
+// bytes of a slot's gate fields: two float4 and a float
+constexpr size_t kFieldBytes = 36;
+
+// The large form (N > 1024): see the file's head.  Shared memory (or, by
+// kTier, this particle's part of ws, stride float4s): hi and the count of
+// listed safe words, then the gate fields ga, gb [N] float4 and i22 [N]
+// float, the claims (link) [N], the alive bit words, the safe bit words
+// and the safe words' list [W each].  out's cov, w and w_prev planes hold
+// the fields that only absorbers touch.
+template <int kTier>
+__global__ void __launch_bounds__(kMaxThreads) merge3d_large(
+    float t2, float infl, int max_passes, int N,
+    const float* __restrict__ mean, const float* __restrict__ cov,
+    const float* __restrict__ w_in, const float* __restrict__ wp_in,
+    const bool* __restrict__ alive_in, float* __restrict__ out,
+    bool* __restrict__ alive_out, float4* __restrict__ ws, size_t stride) {
+  using merge_bitmask::bit;
+  const int W = merge_bitmask::words(N);
+  extern __shared__ float4 smem[];
+  int* s_hi = reinterpret_cast<int*>(smem);
+  int* s_count = s_hi + 1;
+  float4* ga = kTier == kAllShared ? smem + 1 : ws + blockIdx.x * stride;
+  float4* gb = ga + N;
+  float* i22 = reinterpret_cast<float*>(gb + N);
+  int* link = kTier == kFieldsGlobal ? reinterpret_cast<int*>(smem + 1)
+                                     : reinterpret_cast<int*>(i22 + N);
+  unsigned* alive = reinterpret_cast<unsigned*>(link + N);
+  unsigned* safe = alive + W;
+  int* safe_list = reinterpret_cast<int*>(safe + W);
+
+  const size_t PN = static_cast<size_t>(gridDim.x) * N;
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * N;
+  float* o_cov = out + 3 * PN + p0;  // kCov planes, PN apart
+  float* o_w = out + 9 * PN + p0;
+  float* o_wp = out + 10 * PN + p0;
+
+  if (threadIdx.x == 0) *s_hi = 0;
+  __syncthreads();
+  // the covariances and weights into out, the gate fields with S^-1 (once
+  // here, then again only where a merge changed S), the alive bits by
+  // ballot (a warp's lanes take 32 consecutive slots)
+  for (int i = threadIdx.x; i < 32 * W; i += blockDim.x) {
+    bool a = false;
+    if (i < N) {
+      const size_t pi = p0 + i;
+      float c[kCov];
+      #pragma unroll
+      for (int t = 0; t < kCov; ++t)
+        c[t] = o_cov[t * PN + i] = cov[t * PN + pi];
+      o_w[i] = w_in[pi];
+      o_wp[i] = wp_in[pi];
+      float4 ai = {mean[pi], mean[PN + pi], mean[2 * PN + pi], 0.f};
+      float4 bi = {0.f, 0.f, 0.f, 0.f};
+      float ci = 0.f;
+      a = alive_in[pi];
+      if (a) invert(c, ai, bi, ci);  // a dead slot's is never read
+      ga[i] = ai;
+      gb[i] = bi;
+      i22[i] = ci;
+      link[i] = N;
+    }
+    const unsigned b = __ballot_sync(merge_bitmask::kFull, a);
+    if ((i & 31) == 0) {
+      alive[i >> 5] = b;
+      safe[i >> 5] = 0;
+      if (b) atomicMax(s_hi, (i & ~31) + 32 - __clz(b));
+    }
+  }
+  __syncthreads();
+  const int hi = *s_hi;
+  const Gate3 gate{ga, gb, i22, t2};
+
+  const int W_hi = merge_bitmask::words(hi);
+  for (int pass = 0; pass < max_passes; ++pass) {
+    merge_bitmask::safe_sweep2(gate, alive, hi, safe);
+    __syncthreads();
+    merge_bitmask::safe_words(safe, W_hi, safe_list, s_count);
+    __syncthreads();
+    merge_bitmask::claim_sweep(gate, alive, safe, safe_list, *s_count, hi,
+                               link);
+    __syncthreads();
+
+    // An absorber is safe, so no slot claims it, and an absorbed slot
+    // absorbs nothing: each absorber alone reads its fields and its
+    // partner's, and writes its own, so reads and writes need no barrier.
+    // The safe bits are read no more this pass: they are cleared here.
+    bool any = false;
+    for (int i = threadIdx.x; i < hi; i += blockDim.x) {
+      if (i < W_hi) safe[i] = 0;
+      const int js = link[i];
+      if (js == N) continue;
+      link[i] = N;
+      const float w1 = o_w[i], w2 = o_w[js];
+      const float wm = w1 + w2;
+      const bool ok = wm != 0.f;
+      const float w1n = w1 / wm, w2n = w2 / wm;
+      const float4 a1 = ga[i], a2 = ga[js];
+      const float x1[3] = {a1.x, a1.y, a1.z};
+      const float x2[3] = {a2.x, a2.y, a2.z};
+      float nm[3], d1[3], d2[3];
+      #pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        nm[t] = x1[t] * w1n + x2[t] * w2n;
+        d1[t] = nm[t] - x1[t];
+        d2[t] = nm[t] - x2[t];
+      }
+      // packed (r, c) pairs in tri_index order
+      const int pr[kCov] = {0, 0, 0, 1, 1, 2};
+      const int pc[kCov] = {0, 1, 2, 1, 2, 2};
+      float nc[kCov];
+      #pragma unroll
+      for (int t = 0; t < kCov; ++t) {
+        const float* cp = o_cov + t * PN;
+        nc[t] = w1n * (cp[i] + infl * d1[pr[t]] * d1[pc[t]]) +
+                w2n * (cp[js] + infl * d2[pr[t]] * d2[pc[t]]);
+      }
+      if (ok) {
+        float4 ai = {nm[0], nm[1], nm[2], 0.f};
+        float4 bi;
+        #pragma unroll
+        for (int t = 0; t < kCov; ++t) o_cov[t * PN + i] = nc[t];
+        invert(nc, ai, bi, i22[i]);
+        ga[i] = ai;
+        gb[i] = bi;
+        o_w[i] = wm;
+        o_wp[i] = 0.f;
+        atomicAnd(&alive[js >> 5], ~(1u << (js & 31)));
+      }
+      any |= ok;
+    }
+    if (!__syncthreads_or(any)) break;
+  }
+
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const size_t pi = p0 + i;
+    const float4 a = ga[i];
+    out[pi] = a.x;
+    out[PN + pi] = a.y;
+    out[2 * PN + pi] = a.z;
+    alive_out[pi] = bit(alive, i);
+  }
+}
+
 }  // namespace
 
 // threads (a multiple of 32; at least N in the small form), smem and the
-// workspace come from the wrapper's launch_plan.  The form follows from N:
-// the small form (N <= 1024) keeps fields and masks in smem bytes of shared
-// memory, the large form in ws (ws_bytes, at least
-// P * 16 * ceil(particle_words / 4)).
+// workspace come from the wrapper's launch_plan.  The form follows from
+// N: the small form (N <= 1024) keeps fields and masks in smem bytes of
+// shared memory; the large form in smem and, past 5,756 slots, in ws
+// (ws_bytes), as merge_bitmask::large_layout checks.
 extern "C" int merge3d_launch(int P, int N, int threads, int smem, float t2,
                               float infl, int max_passes, const void* mean,
                               const void* cov, const void* w, const void* wp,
                               const void* alive, void* out, void* alive_out,
                               void* ws, size_t ws_bytes, void* stream) {
-  const int W = merge_bitmask::words(N);
-  const size_t stride = (particle_words(N, W) + 3) / 4;  // float4s
-  const bool large = N > kMaxThreads;
   if (threads > kMaxThreads || threads % 32 != 0 || threads < 32 || N < 1 ||
-      (large ? (ws == nullptr || ws_bytes < P * stride * sizeof(float4) ||
-                static_cast<size_t>(N) * W >= (1u << 31))
-             : threads < N))
+      smem < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = large ? merge3d_kernel<true> : merge3d_kernel<false>;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const float*>(mean);
+  const auto* c = static_cast<const float*>(cov);
+  const auto* wi = static_cast<const float*>(w);
+  const auto* wpi = static_cast<const float*>(wp);
+  const auto* ai = static_cast<const bool*>(alive);
+  auto* o = static_cast<float*>(out);
+  auto* ao = static_cast<bool*>(alive_out);
+  if (N <= kMaxThreads) {
+    if (threads < N) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          merge3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    merge3d_kernel<<<P, threads, smem, st>>>(t2, infl, max_passes, N, m, c,
+                                             wi, wpi, ai, o, ao);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const auto lay =
+      merge_bitmask::large_layout(kFieldBytes * N, P, N, smem, ws, ws_bytes);
+  if (!lay.ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lay.tier == kAllShared      ? merge3d_large<kAllShared>
+                : lay.tier == kFieldsGlobal ? merge3d_large<kFieldsGlobal>
+                                            : merge3d_large<kAllGlobal>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      t2, infl, max_passes, N, static_cast<const float*>(mean),
-      static_cast<const float*>(cov), static_cast<const float*>(w),
-      static_cast<const float*>(wp), static_cast<const bool*>(alive),
-      static_cast<float*>(out), static_cast<bool*>(alive_out),
-      static_cast<float4*>(ws), stride);
+  kernel<<<P, threads, smem, st>>>(t2, infl, max_passes, N, m, c, wi, wpi,
+                                   ai, o, ao, static_cast<float4*>(ws),
+                                   lay.stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,6 +75,23 @@ def workspace_bytes(P: int, per_particle: int) -> int:
     return P * -(-per_particle // 16) * 16
 
 
+def merge_large_layout(P: int, N: int, field_bytes: int) -> tuple[int, int]:
+    """``(shared memory, workspace)`` bytes of a merge kernel's large form at
+    ``P`` particles of ``N`` slots whose gate fields take ``field_bytes``
+    a slot (``csrc/merge_bitmask.cuh``'s ``large_layout``).  Shared memory
+    holds a 16-byte header, the gate fields, the claims (4 bytes a slot),
+    the alive bits, the safe bits and the list of safe words (12 bytes per
+    32 slots) while they fit; past that the gate fields, and then the
+    rest too, go to a workspace of :func:`workspace_bytes`."""
+    header = 16
+    fields, claims = field_bytes * N, 4 * N + 12 * -(-N // 32)
+    if header + fields + claims <= MAX_SMEM:
+        return header + fields + claims, 0
+    if header + claims <= MAX_SMEM:
+        return header + claims, workspace_bytes(P, fields)
+    return header, workspace_bytes(P, fields + claims)
+
+
 def workspace(nbytes: int, device):
     """A kernel's global workspace of ``nbytes`` (None for 0), from
     PyTorch's caching allocator on the current stream: the launch that

@@ -30,7 +30,6 @@ SMALL_SLOTS = 1024  # the small form: one thread per slot
 MIN_THREADS = 512  # 16 warps for the gate rows, two CTAs an SM
 LARGE_THREADS = 1024  # the large form's threads, striding over the slots
 SLOT_PLANES = 12   # per-slot words of the fields and the claims
-LARGE_HEADER = 16  # the large form's first shared bytes (hi, counts)
 FIELD_BYTES = 20   # a slot's gate fields: a float4 and a float
 
 # kernel launches made by merge2d (the twin does not count), and those of
@@ -64,24 +63,17 @@ def launch_plan(P: int, N: int) -> LaunchPlan:
     a slot), the alive bits, the safe bits and the list of safe words (12
     bytes per 32 slots) while they fit, up to 9,535 slots; past that the
     gate fields, and past 53,125 slots the claims, bits and list too, go to
-    a global workspace
-    of :func:`build.workspace_bytes` (``P`` parts, each rounded up to 16
-    bytes).  The output buffer holds the covariances and weights.  Raises
+    a global workspace (:func:`build.merge_large_layout`: ``P`` parts,
+    each rounded up to 16 bytes).  The output buffer holds the covariances
+    and weights.  Raises
     ``ValueError`` for a shape neither form takes: the shapes of the mask
     forms (N * ceil(N / 32) < 2**31, as ``merge3d``'s), not empty."""
     words = -(-N // 32)
     if P < 1 or N < 1 or N * words >= 2**31:
         raise ValueError(f"merge2d: no launch for P={P}, N={N}")
     if N > SMALL_SLOTS:
-        fields, claims = FIELD_BYTES * N, 4 * N + 12 * words
-        if LARGE_HEADER + fields + claims <= build.MAX_SMEM:
-            return LaunchPlan(LARGE_THREADS, LARGE_HEADER + fields + claims,
-                              "large")
-        if LARGE_HEADER + claims <= build.MAX_SMEM:
-            return LaunchPlan(LARGE_THREADS, LARGE_HEADER + claims, "large",
-                              build.workspace_bytes(P, fields))
-        return LaunchPlan(LARGE_THREADS, LARGE_HEADER, "large",
-                          build.workspace_bytes(P, fields + claims))
+        smem, ws = build.merge_large_layout(P, N, FIELD_BYTES)
+        return LaunchPlan(LARGE_THREADS, smem, "large", ws)
     layout = 4 * (SLOT_PLANES * N + N * words + words)
     if layout > build.MAX_SMEM:
         raise ValueError(f"merge2d: N={N} needs {layout} B of shared memory")

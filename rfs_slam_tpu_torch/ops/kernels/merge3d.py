@@ -3,12 +3,14 @@ kernel wrapper and its plain PyTorch twin.
 
 Port of the JAX package's Pallas kernel ``ops/pallas/merge3d.py``.  The
 kernel (``csrc/merge3d.cu``) runs the whole pass loop per particle in one
-CTA, its pair search the gate bit mask of ``csrc/merge_bitmask.cuh``; the
-twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`, which is
-D-generic.  Two forms, chosen by :func:`launch_plan` from the shape, as
+CTA; the twin is :func:`rfs_slam_tpu_torch.ops.gm.merge_fixpoint`, which
+is D-generic.  Two forms, chosen by :func:`launch_plan` from the shape, as
 ``merge2d``'s: the small form (N <= 1,024: one thread per slot, fields and
-masks in shared memory) and the large form (any N above: the same
-statements, fields and masks in a global workspace).
+the gate bit mask of ``csrc/merge_bitmask.cuh`` in shared memory) and the
+large form (any N above: the same rules and arithmetic with a pair search
+that needs no mask, two rows a warp; the gate fields, claims and bits in
+shared memory up to 5,756 slots, past that in a global workspace the
+wrapper allocates on the launch's stream).
 
 :func:`merge3d` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; nothing falls back.
@@ -27,6 +29,7 @@ from rfs_slam_tpu_torch.ops.kernels import build
 
 SMALL_SLOTS = 1024  # the small form: one thread per slot
 SLOT_PLANES = 19   # per-slot words of the fields and the claims
+FIELD_BYTES = 36   # the large form's gate fields a slot: two float4, a float
 # 32 warps for the gate rows: at Victoria Park's P=100 one CTA an SM fits
 # every particle in one wave, and 32 warps ran the kernel ~8% faster
 # than 16 on an H100 (PERF.md, section 6)
@@ -58,18 +61,23 @@ def launch_plan(P: int, N: int) -> LaunchPlan:
     covariances, w, w_prev, alive and the claims), the gate bit mask (N
     rows of ceil(N / 32) words) and the safe-absorber words, as
     ``csrc/merge3d.cu`` lays it out.  The large form (N above): the
-    threads stride over the slots, no dynamic shared memory, the same
-    layout per particle in a global workspace of
-    :func:`build.workspace_bytes`.  Raises ``ValueError`` for a shape
-    neither form takes (N * ceil(N / 32) >= 2**31: the mask's 32-bit
-    index)."""
+    threads stride over the slots, and there is no mask.  Shared memory
+    holds a 16-byte header, the gate fields (``FIELD_BYTES`` a slot), the
+    claims (4 bytes a slot), the alive bits, the safe bits and the list of
+    safe words (12 bytes per 32 slots) while they fit, up to 5,756 slots
+    (82,704 bytes at N=2,048); past that the gate fields, and past 53,125
+    slots the claims, bits and list too, go to a global workspace
+    (:func:`build.merge_large_layout`).  The output buffer holds the
+    covariances and weights.  Raises ``ValueError`` for a shape neither
+    form takes: the shapes of the mask forms (N * ceil(N / 32) < 2**31),
+    not empty."""
     words = -(-N // 32)
     if P < 1 or N < 1 or N * words >= 2**31:
         raise ValueError(f"merge3d: no launch for P={P}, N={N}")
-    layout = 4 * (SLOT_PLANES * N + N * words + words)
     if N > SMALL_SLOTS:
-        return LaunchPlan(THREADS, 0, "large",
-                          build.workspace_bytes(P, layout))
+        smem, ws = build.merge_large_layout(P, N, FIELD_BYTES)
+        return LaunchPlan(THREADS, smem, "large", ws)
+    layout = 4 * (SLOT_PLANES * N + N * words + words)
     if layout > build.MAX_SMEM:
         raise ValueError(f"merge3d: N={N} needs {layout} B of shared memory")
     return LaunchPlan(THREADS, layout)

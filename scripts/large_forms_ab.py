@@ -1,5 +1,6 @@
-"""The large forms (M, N > 1,024 slots) of ``map_update2d`` and ``merge2d``
-against an earlier version of their sources, on one card in one process.
+"""The large forms (M, N > 1,024 slots) of ``map_update2d``, ``merge2d``
+and ``merge3d`` against an earlier version of their sources, on one card
+in one process.
 
 The earlier kernels and their wrappers' launch plans are read from
 ``--old``, a directory holding an earlier commit's
@@ -16,22 +17,38 @@ bit; then each is timed in turns (old, new, new, old) with
   example state of ``apps/example_step.py`` predicted one step); and, not
   timed, edge inputs at M=2,048 (negative weights, T=1, ties, zero
   clutter with masked and empty columns, every slot alive);
-* ``merge2d``: random mixtures at P=200, N=1,025; the mid-run state's
-  merge input padded to 2,048; the overflow step's merge input (P=64,
-  N=8,192); past the slots whose fixpoint data fits in shared memory,
-  random mixtures spread to a few gated neighbours a slot at P=2,
-  N=12,288 (the gate fields in the workspace) and P=1, N=53,248 (all in
-  the workspace), timed over fewer calls; and, not timed, every slot
-  alive at N=2,048 and ``chip_smoke``'s edge mixtures (chains across
-  words, every slot alive, N=100, an empty particle) padded to 2,048.
+* ``merge2d``: the mid-run state's merge input (P=200, N=128: the small
+  form), random mixtures at P=200, N=1,025; the merge input padded to
+  2,048; the overflow step's merge input (P=64, N=8,192); past the slots
+  whose fixpoint data fits in shared memory, random mixtures spread to a
+  few gated neighbours a slot at P=2, N=12,288 (the gate fields in the
+  workspace) and P=1, N=53,248 (all in the workspace), timed over fewer
+  calls; and, not timed, every slot alive at N=2,048 and
+  ``chip_smoke``'s edge mixtures padded to 2,048;
+* ``merge3d``: the merge input of Victoria Park RB-PHD's frame 2,000
+  (``chip_smoke``'s stream and filter, P=100, N=512: the small form), the
+  same padded to 2,048; random and all-alive mixtures at P=16, N=1,025
+  and 2,048; random mixtures at N=8,192 (P=2 and P=100: the gate fields
+  in the workspace) and, spread to a few gated neighbours a slot, at P=1,
+  N=53,248 (all in the workspace); and, not timed, ``chip_smoke``'s D=3
+  edge mixtures padded to 2,048.
+
+Two studies of the new ``merge3d`` follow.  The sweep A/B builds it again
+with the one-row ``safe_sweep`` in place of ``safe_sweep2`` (a text edit
+of the source) and times both, bit-equal, in turns on the padded Victoria
+Park input and at N=8,192.  The clock split builds the old and the new
+``merge3d`` with ``clock64()`` stamps at each barrier of the large form
+(text edits, ``CLOCK_EDITS``, for the earlier gate-mask form and for the
+mask-free form; it raises if a kernel changed under one),
+runs each on the padded Victoria Park input and prints each phase's
+cycles, the mean over the CTAs.
 
 For the new ``map_update2d`` each case prints the kernel's own counts: the
 largest number of a particle's table slots, the particles whose stash went
-to the workspace and the most table chunks of one; for ``merge2d`` the
+to the workspace and the most table chunks of one; for the merges the
 passes of the fixpoint (the twin's, a few particles at a time on the
-alive prefix, up to 16,384 slots) and both plans' workspaces.  One JSON
-line a case, then each build's ptxas report and the card's name and
-power limit.
+alive prefix, up to 16,384 slots) and both plans.  One JSON line a case,
+then each build's ptxas report and the card's name and power limit.
 
 Usage, from the repository root on a machine with the card::
 
@@ -59,22 +76,85 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from rfs_slam_tpu_torch.apps import example_step as ex  # noqa: E402
 from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app  # noqa: E402
+from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as vp_app  # noqa: E402,E501
 from rfs_slam_tpu_torch.apps import sim2d_common as loop  # noqa: E402
 from rfs_slam_tpu_torch.core.state import GMState  # noqa: E402
 from rfs_slam_tpu_torch.io import sim2d  # noqa: E402
+from rfs_slam_tpu_torch.io import victoria_park as vp_io  # noqa: E402
+from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig  # noqa: E402
 from rfs_slam_tpu_torch.ops import gm as gm_ops  # noqa: E402
 from rfs_slam_tpu_torch.ops.kernels import build  # noqa: E402
 from rfs_slam_tpu_torch.ops.kernels import map_update2d as mu  # noqa: E402
 from rfs_slam_tpu_torch.ops.kernels import merge2d as mg  # noqa: E402
+from rfs_slam_tpu_torch.ops.kernels import merge3d as m3  # noqa: E402
 
-KERNELS = ("merge2d", "map_update2d")
+KERNELS = ("merge2d", "merge3d", "map_update2d")
 LIB_DIR = os.path.join(ROOT, "build", "ab", "lib")
+SRC_DIR = os.path.join(ROOT, "build", "ab", "src")   # edited sources
 PAD = 2048
 OVERFLOW = (64, 8192, 16)
 # P, N, what goes to the workspace: merge2d past the slots whose fixpoint
 # data fits in shared memory
 WORKSPACE_CASES = ((2, 12288, "gate fields"), (1, 53248, "all"))
 TRACE_SLOTS = 16384   # the most slots whose twin trace gives the passes
+OUT_PLANES = {"merge2d": 7, "merge3d": 11}
+# the one-row sweep in the new merge3d's place (the sweep A/B)
+ONE_ROW_EDIT = ("merge_bitmask::safe_sweep2(gate",
+                "merge_bitmask::safe_sweep(gate")
+# clock64() stamps: cycles a CTA's thread 0 spends from one barrier of the
+# large form to the next, summed into clk[CTA][phase] (phase 5: passes)
+CLOCK_PHASES = ("copy in", "gate rows / safe sweep",
+                "claims (with the safe list)", "merge and any", "copy out")
+CLOCK_PRELUDE = """
+__device__ unsigned long long clk[4096 * 8];
+extern "C" int merge3d_clock(void* dst, int P) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, clk, P * 8 * sizeof(long long));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static unsigned long long zero[4096 * 8];
+  return static_cast<int>(cudaMemcpyToSymbol(clk, zero, sizeof(zero)));
+}
+#define CLK_START long long clk_t = clock64();
+#define CLK(ph)                                                  \\
+  if (threadIdx.x == 0) {                                        \\
+    const long long clk_n = clock64();                           \\
+    clk[blockIdx.x * 8 + (ph)] += clk_n - clk_t;                 \\
+    clk_t = clk_n;                                               \\
+    if ((ph) == 3) clk[blockIdx.x * 8 + 5] += 1;                 \\
+  }
+"""
+# where the large form starts, [(text, replacement)]: each text must occur
+# exactly once after the start.  The earlier gate-mask form (one kernel
+# template for both forms) and the mask-free large form.
+CLOCK_EDITS = {
+    "mask": ("merge3d_kernel(", [
+        ("  using merge_bitmask::for_slots;\n",
+         "  using merge_bitmask::for_slots;\n  CLK_START\n"),
+        ("  const int hi = s_hi;\n", "  const int hi = s_hi;\n  CLK(0)\n"),
+        ("s_gate, s_safe);\n    __syncthreads();\n",
+         "s_gate, s_safe);\n    __syncthreads();\n    CLK(1)\n"),
+        ("s_safe, s_jstar);\n    });\n    __syncthreads();\n",
+         "s_safe, s_jstar);\n    });\n    __syncthreads();\n    CLK(2)\n"),
+        ("    if (!__syncthreads_or(any)) break;\n",
+         "    const int clk_any = __syncthreads_or(any);\n    CLK(3)\n"
+         "    if (!clk_any) break;\n"),
+        ("    alive_out[pi] = s_alive[i] != 0;\n  });\n}",
+         "    alive_out[pi] = s_alive[i] != 0;\n  });\n  __syncthreads();\n"
+         "  CLK(4)\n}")]),
+    "mask-free": ("merge3d_large(", [
+        ("  if (threadIdx.x == 0) *s_hi = 0;\n",
+         "  CLK_START\n  if (threadIdx.x == 0) *s_hi = 0;\n"),
+        ("  const int hi = *s_hi;\n", "  const int hi = *s_hi;\n  CLK(0)\n"),
+        ("hi, safe);\n    __syncthreads();\n",
+         "hi, safe);\n    __syncthreads();\n    CLK(1)\n"),
+        ("                               link);\n    __syncthreads();\n",
+         "                               link);\n    __syncthreads();\n"
+         "    CLK(2)\n"),
+        ("    if (!__syncthreads_or(any)) break;\n",
+         "    const int clk_any = __syncthreads_or(any);\n    CLK(3)\n"
+         "    if (!clk_any) break;\n"),
+        ("    alive_out[pi] = bit(alive, i);\n  }\n}",
+         "    alive_out[pi] = bit(alive, i);\n  }\n  __syncthreads();\n"
+         "  CLK(4)\n}")])}
 vp = ctypes.c_void_p
 
 
@@ -88,19 +168,40 @@ def plan_module(old_dir, k):
     return mod
 
 
-def build_all(srcs):
-    """``{(version, kernel): (CDLL, ptxas report)}``, one nvcc each, all
+def edited(src, ver, edits, start=None, prelude=""):
+    """``src`` with each ``(text, replacement)`` of ``edits`` made once
+    after ``start`` (each text must occur there exactly once) and
+    ``prelude`` after its includes, written to ``build/ab/src/<ver>/``."""
+    with open(src) as f:
+        text = f.read()
+    cut = text.index(start) if start else 0
+    head, tail = text[:cut], text[cut:]
+    for old, new in edits:
+        if tail.count(old) != 1:
+            raise RuntimeError(f"{src}: {old!r} occurs {tail.count(old)} "
+                               f"times: the kernel changed under the edit")
+        tail = tail.replace(old, new)
+    inc = '#include "merge_bitmask.cuh"\n'
+    head = head.replace(inc, inc + prelude)
+    out = os.path.join(SRC_DIR, ver, os.path.basename(src))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(head + tail)
+    return out
+
+
+def build_all(jobs):
+    """``{(version, kernel): (CDLL, ptxas report)}`` of ``jobs``,
+    ``(version, kernel, source, header directory)``: one nvcc each, all
     started together."""
     os.makedirs(LIB_DIR, exist_ok=True)
     procs = []
-    for ver, d in srcs.items():
-        for k in KERNELS:
-            src = os.path.join(d, f"{k}.cu")
-            out = os.path.join(LIB_DIR, f"{k}-large-{ver}.so")
-            flags = build.NVCC_FLAGS + build.EXTRA_FLAGS.get(k, [])
-            procs.append((ver, k, out, subprocess.Popen(
-                [build._nvcc(), *flags, "-I", d, "-o", out, src],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for ver, k, src, inc in jobs:
+        out = os.path.join(LIB_DIR, f"{k}-large-{ver}.so")
+        flags = build.NVCC_FLAGS + build.EXTRA_FLAGS.get(k, [])
+        procs.append((ver, k, out, subprocess.Popen(
+            [build._nvcc(), *flags, "-I", inc, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     libs = {}
     for ver, k, out, proc in procs:
         err = proc.communicate()[1]
@@ -112,29 +213,28 @@ def build_all(srcs):
 
 
 class Version:
-    """One build of both kernels with its own plans and C entries."""
+    """One build of the kernels with its own plans and C entries."""
 
-    def __init__(self, libs, ver, plans, new_abi):
-        self.mu_lib = libs[ver, "map_update2d"][0]
-        self.mg_lib = libs[ver, "merge2d"][0]
+    def __init__(self, libs, ver, plans, new_abi=True):
+        self.libs = {k: lib for (v, k), (lib, _) in libs.items() if v == ver}
         self.plans = plans
         self.new_abi = new_abi   # map_update2d's stats
 
-    def merge2d(self, gm, thr, infl, stream):
+    def merge(self, k, gm, thr, infl, stream):
         P, N = gm.w.shape
-        plan = self.plans["merge2d"].launch_plan(P, N)
-        out = torch.empty((7, P, N), device=gm.w.device)
+        plan = self.plans[k].launch_plan(P, N)
+        out = torch.empty((OUT_PLANES[k], P, N), device=gm.w.device)
         alive_o = torch.empty_like(gm.alive)
         ws = build.workspace(plan.workspace, gm.w.device)
         ptrs = [vp(t.data_ptr()) for t in (gm.mean, gm.cov, gm.w, gm.w_prev,
                                            gm.alive, out, alive_o)]
-        err = self.mg_lib.merge2d_launch(
+        err = getattr(self.libs[k], f"{k}_launch")(
             ctypes.c_int(P), ctypes.c_int(N), ctypes.c_int(plan.threads),
             ctypes.c_int(plan.smem), ctypes.c_float(thr * thr),
             ctypes.c_float(infl), ctypes.c_int(8), *ptrs,
             vp(build.ptr(ws)), ctypes.c_size_t(plan.workspace), vp(stream))
         if err != 0:
-            raise RuntimeError(f"merge2d launch failed: CUDA error {err}")
+            raise RuntimeError(f"{k} launch failed: CUDA error {err}")
         return out, alive_o
 
     def map_update(self, a, stream, stats=None):
@@ -153,7 +253,7 @@ class Version:
         tail = [vp(build.ptr(stash))]
         if self.new_abi:
             tail.append(vp(build.ptr(stats)))
-        err = self.mu_lib.map_update2d_launch(
+        err = self.libs["map_update2d"].map_update2d_launch(
             *(ctypes.c_int(v) for v in (P, M, Zc, T, plan.threads, plan.smem,
                                         plan.zb)),
             mu._c_params(tuple(params)), *ptrs, *tail, vp(stream))
@@ -170,6 +270,11 @@ def bit_equal(xs, ys):
 
 def padded(x, n):
     return cs.pad_slots(torch, x, n)
+
+
+def padded_gm(g, n):
+    return GMState(*[padded(x, n) for x in (g.mean, g.cov, g.w, g.w_prev,
+                                            g.alive)])
 
 
 def map_update_cases(dev, rng):
@@ -218,23 +323,24 @@ def map_update_cases(dev, rng):
     return cases, (filt, state, z, z_mask), (ofilt, ostate, oz, ozm)
 
 
-def merge_cases(dev, rng, mid, over):
-    """(name, mixture, threshold, inflation, calls timed, 0 for none) of
-    the merge's cases."""
+def merge2d_cases(dev, rng, mid, over):
+    """(kernel, name, mixture, threshold, inflation, calls timed, 0 for
+    none) of merge2d's cases."""
     filt, state, z, z_mask = mid
     full = filt._map_update(state, z, z_mask)[0]
     merge_in = gm_ops.compact(full, full.capacity)
     thr, infl = filt.cfg.merge_threshold, filt.cfg.merge_inflation
-    pad = GMState(*[padded(x, PAD) for x in (
-        merge_in.mean, merge_in.cov, merge_in.w, merge_in.w_prev,
-        merge_in.alive)])
     ofilt, ostate, oz, ozm = over
     ofull = ofilt._map_update(ostate, oz, ozm)[0]
     omerge = gm_ops.compact(ofull, ofull.capacity)
-    cases = [("random P=200 N=1025", cs.random_mixtures(
+    cases = [("mid-run merge input P=200 N=128 (small form)", merge_in, thr,
+              infl, 25),
+             ("random P=200 N=1025", cs.random_mixtures(
                  torch, GMState, rng, 200, 1025, dev, (500, 1025)), 1.5, 1.5,
               25),
-             (f"mid-run merge input padded to {PAD}", pad, thr, infl, 25),
+             (f"mid-run merge input padded to {PAD}", padded_gm(merge_in,
+                                                                PAD), thr,
+              infl, 25),
              (f"overflow merge input P={OVERFLOW[0]} N={OVERFLOW[1]}", omerge,
               ofilt.cfg.merge_threshold, ofilt.cfg.merge_inflation, 25)]
     for P, N, tier in WORKSPACE_CASES:
@@ -244,17 +350,107 @@ def merge_cases(dev, rng, mid, over):
                       1.5, 1.5, 5))
     cases.append(("every slot alive N=2048", cs.random_mixtures(
         torch, GMState, rng, 16, PAD, dev, (PAD, PAD)), 1.5, 1.5, 0))
-    cases += [(f"{name} padded to {PAD}", GMState(*[padded(x, PAD) for x in (
-        g.mean, g.cov, g.w, g.w_prev, g.alive)]), 1.5, 1.5, 0)
+    cases += [(f"{name} padded to {PAD}", padded_gm(g, PAD), 1.5, 1.5, 0)
               for name, g in cs.edge_mixtures(torch, GMState, rng, dev)]
-    return cases
+    return [("merge2d", *c) for c in cases]
 
 
-def timed(call, n=25):
-    times = {"old": [], "new": []}
-    for v in ("old", "new", "new", "old"):
-        times[v].append(cs.cuda_ms(torch, call[v], n=n))
+def vp_merge_input(dev):
+    """The merge input of Victoria Park RB-PHD's frame
+    ``chip_smoke.VP_FRAMES`` (chip_smoke's stream, filter and seed), and
+    the filter's threshold and inflation."""
+    vp_plain, _, vp_cfg = cs.vp_streams()
+    filt, icov, ack = vp_app.build(XmlConfig(vp_cfg), device=dev)
+    stream = vp_io.load(vp_plain, z_capacity=vp_app.Z_CAPACITY, ackerman=ack)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = vp_app.run(filt, icov, vp_app.head(stream, cs.VP_FRAMES), gen)
+    g = cs.vp_merge_input(torch, gm_ops, filt, state, stream, cs.VP_FRAMES,
+                          dev)
+    return g, filt.cfg.merge_threshold, filt.cfg.merge_inflation
+
+
+def merge3d_cases(dev, rng, vp_in):
+    """(kernel, name, mixture, threshold, inflation, calls timed, 0 for
+    none) of merge3d's cases; the first two are the Victoria Park input
+    and the same padded."""
+    g, thr, infl = vp_in
+    mix = lambda P, N, n_alive, **kw: cs.random_mixtures3(
+        torch, GMState, rng, P, N, dev, n_alive, **kw)
+    N = 53248
+    cases = [(f"VP frame {cs.VP_FRAMES} merge input P=100 N=512 (small "
+              f"form)", g, thr, infl, 25),
+             (f"VP frame {cs.VP_FRAMES} merge input padded to {PAD}",
+              padded_gm(g, PAD), thr, infl, 25)]
+    for n in (1025, PAD):
+        cases += [(f"random P=16 N={n}", mix(16, n, (n // 2, n)), 1.5, 1.5,
+                   25),
+                  (f"every slot alive P=16 N={n}", mix(16, n, (n, n)), 1.5,
+                   1.5, 25)]
+    cases += [(f"random P={p} N=8192 (gate fields in the workspace)",
+               mix(p, 8192, (4096, 8192)), 1.5, 1.5, 5) for p in (2, 100)]
+    cases.append((f"random P=1 N={N} (all in the workspace)",
+                  mix(1, N, (N - N // 8, N), spread=0.4 * N ** 0.5), 1.5,
+                  1.5, 3))
+    cases += [(f"{name} padded to {PAD}", padded_gm(e, PAD), 1.5, 1.5, 0)
+              for name, e in cs.edge_mixtures3(torch, GMState, rng, 100, 512,
+                                               dev)]
+    return [("merge3d", *c) for c in cases]
+
+
+def timed(call, n=25, order=("old", "new", "new", "old")):
+    times = {v: [] for v in order}
+    for v in order:
+        times[v].append(cs.cuda_ms(torch, call[v], n=n,
+                                   warmup=1 if n < 25 else 3))
     return times, {v: statistics.median(t) for v, t in times.items()}
+
+
+def passes(g, thr, infl):
+    return (cs.merge_passes(gm_ops, g, thr, infl, cs.MERGE_TRACE_CHUNK)
+            if g.w.shape[1] <= TRACE_SLOTS else None)
+
+
+def sweep_ab(vers, cases, stream):
+    """The new merge3d's two-row sweep against the one-row sweep: bits,
+    then times in turns (one, two, two, one)."""
+    for k, name, g, thr, infl, n_timed in cases:
+        two = vers["new"].merge(k, g, thr, infl, stream)
+        one = vers["one"].merge(k, g, thr, infl, stream)
+        torch.cuda.synchronize()
+        call = {"two": lambda: vers["new"].merge(k, g, thr, infl, stream),
+                "one": lambda: vers["one"].merge(k, g, thr, infl, stream)}
+        ms, med = timed(call, n_timed, ("one", "two", "two", "one"))
+        print(json.dumps({"study": "merge3d sweep, one row / two rows a "
+                          "warp", "case": name,
+                          "bit_equal": bit_equal(one, two), "ms": ms,
+                          "median_ms": med}), flush=True)
+        if not bit_equal(one, two):
+            raise AssertionError(f"merge3d sweep A/B {name}: the builds "
+                                 f"differ")
+
+
+def clock_split(libs, vers, case, stream):
+    """Each build's cycles a phase (thread 0 of each CTA, the mean over
+    the CTAs) on one call of ``case``, after one untimed call."""
+    _, name, g, thr, infl, _ = case
+    P = g.w.shape[0]
+    for ver in ("old", "new"):
+        v = vers[f"{ver}_clk"]
+        lib = libs[f"{ver}_clk", "merge3d"][0]
+        buf = np.zeros((P, 8), np.uint64)
+        for _ in range(2):
+            v.merge("merge3d", g, thr, infl, stream)
+            torch.cuda.synchronize()
+            err = lib.merge3d_clock(vp(buf.ctypes.data), ctypes.c_int(P))
+            if err != 0:
+                raise RuntimeError(f"merge3d_clock: CUDA error {err}")
+        cyc = buf[:, :5].astype(np.float64).mean(axis=0)
+        print(json.dumps({
+            "study": "merge3d clock64 split", "version": ver, "case": name,
+            "passes_mean": float(buf[:, 5].mean()),
+            "cycles": dict(zip(CLOCK_PHASES, cyc.tolist())),
+            "share": dict(zip(CLOCK_PHASES, (cyc / cyc.sum()).tolist()))}),
+            flush=True)
 
 
 def main(argv=None):
@@ -267,14 +463,29 @@ def main(argv=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     old_dir = os.path.abspath(args.old)
     old_csrc = os.path.join(old_dir, "rfs_slam_tpu_torch", "csrc")
-    libs = build_all({"old": old_csrc, "new": os.path.join(
-        ROOT, "rfs_slam_tpu_torch", "csrc")})
+    new_csrc = os.path.join(ROOT, "rfs_slam_tpu_torch", "csrc")
+    jobs = [(v, k, os.path.join(d, f"{k}.cu"), d) for v, d in (
+        ("old", old_csrc), ("new", new_csrc)) for k in KERNELS]
+    new3 = os.path.join(new_csrc, "merge3d.cu")
+    jobs.append(("one", "merge3d", edited(new3, "one", [ONE_ROW_EDIT]),
+                 new_csrc))
+    for ver, d in (("old", old_csrc), ("new", new_csrc)):
+        src = os.path.join(d, "merge3d.cu")
+        with open(src) as f:
+            form = "mask-free" if "merge3d_large(" in f.read() else "mask"
+        start, edits = CLOCK_EDITS[form]
+        jobs.append((f"{ver}_clk", "merge3d", edited(
+            src, f"{ver}_clk", edits, start, CLOCK_PRELUDE), d))
+    libs = build_all(jobs)
     with open(os.path.join(old_csrc, "map_update2d.cu")) as f:
         old_abi = "int* stats" in f.read()
-    vers = {"old": Version(libs, "old", {k: plan_module(old_dir, k)
-                                         for k in KERNELS}, old_abi),
-            "new": Version(libs, "new", {"merge2d": mg, "map_update2d": mu},
-                           True)}
+    old_plans = {k: plan_module(old_dir, k) for k in KERNELS}
+    new_plans = {"merge2d": mg, "merge3d": m3, "map_update2d": mu}
+    vers = {"old": Version(libs, "old", old_plans, old_abi),
+            "new": Version(libs, "new", new_plans),
+            "one": Version(libs, "one", new_plans),
+            "old_clk": Version(libs, "old_clk", old_plans),
+            "new_clk": Version(libs, "new_clk", new_plans)}
     rng = np.random.default_rng(12)
     mu_cases, mid, over = map_update_cases(dev, rng)
     for name, a, is_timed in mu_cases:
@@ -298,28 +509,30 @@ def main(argv=None):
         print(json.dumps(rec), flush=True)
         if not equal:
             raise AssertionError(f"map_update2d {name}: the builds differ")
-    for name, g, thr, infl, n_timed in merge_cases(dev, rng, mid, over):
-        old = vers["old"].merge2d(g, thr, infl, stream)
-        new = vers["new"].merge2d(g, thr, infl, stream)
+    m3_cases = merge3d_cases(dev, rng, vp_merge_input(dev))
+    for k, name, g, thr, infl, n_timed in (
+            merge2d_cases(dev, rng, mid, over) + m3_cases):
+        old = vers["old"].merge(k, g, thr, infl, stream)
+        new = vers["new"].merge(k, g, thr, infl, stream)
         torch.cuda.synchronize()
         equal = bit_equal(old, new)
         P, N = g.w.shape
-        rec = {"kernel": "merge2d", "case": name, "bit_equal": equal,
-               "alive": int(g.alive.sum()),
-               "alive_after": int(new[1].sum()),
-               "passes": (cs.merge_passes(gm_ops, g, thr, infl,
-                                          cs.MERGE_TRACE_CHUNK)
-                          if N <= TRACE_SLOTS else None),
-               "plan_new": mg.launch_plan(P, N)._asdict(),
-               "workspace_old": vers["old"].plans["merge2d"].launch_plan(
-                   P, N).workspace}
+        rec = {"kernel": k, "case": name, "bit_equal": equal,
+               "alive": int(g.alive.sum()), "alive_after": int(new[1].sum()),
+               "passes": passes(g, thr, infl),
+               "plan_new": new_plans[k].launch_plan(P, N)._asdict(),
+               "plan_old": old_plans[k].launch_plan(P, N)._asdict()}
         if n_timed:
-            call = {v: (lambda v=v: vers[v].merge2d(g, thr, infl, stream))
+            call = {v: (lambda v=v: vers[v].merge(k, g, thr, infl, stream))
                     for v in ("old", "new")}
             rec["ms"], rec["median_ms"] = timed(call, n_timed)
         print(json.dumps(rec), flush=True)
         if not equal:
-            raise AssertionError(f"merge2d {name}: the builds differ")
+            raise AssertionError(f"{k} {name}: the builds differ")
+    # the padded Victoria Park input and N=8,192 (P=2, P=100)
+    sweep_ab(vers, [m3_cases[1]] + [c for c in m3_cases
+                                     if "N=8192" in c[1]], stream)
+    clock_split(libs, vers, m3_cases[1], stream)
     for (ver, k), (_, regs) in sorted(libs.items()):
         print(f"{ver} {k}: {regs}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -48,7 +48,12 @@ LARGE_PLANS = ([("map_update2d", (64, m, zc)) for m in (1025, 2048, 4096,
                 for zc in (16, 40)]
                + [(k, (64, n)) for k in ("merge2d", "merge3d")
                   for n in (1025, 2048, 4096, 8192)]
-               + [("merge2d", (2, 12288)), ("merge2d", (1, 53248))])
+               + [("merge2d", (2, 12288)), ("merge2d", (1, 53248))]
+               # merge3d's tiers: all in shared memory up to 5,756 slots
+               # (and at Victoria Park's P=100 padded to 2,048), the gate
+               # fields in the workspace up to 53,125, then all of it
+               + [("merge3d", (100, 2048))]
+               + [("merge3d", (64, n)) for n in (5756, 5757, 53125, 53126)])
 H100_SMS = 132   # an H100 SXM's SMs
 
 
@@ -81,8 +86,10 @@ def test_launch_plans(kernel, shape):
     safe words) in shared memory, no workspace up to 9,535 slots (199,696
     B at N=8,192, where the mask form took 562,102,272 B of workspace at
     P=64); past that the gate fields in the workspace, and past 53,125
-    slots all of it.  merge3d: its shared-memory layout per
-    particle in the workspace, each rounded up to 16 bytes.  map_update2d:
+    slots all of it.  merge3d: the same layout with 36 bytes of gate
+    fields a slot, no workspace up to 5,756 slots (82,704 B at N=2,048,
+    where the mask form took 68,019,200 B of workspace at P=100); each
+    particle's part of a workspace rounded up to 16 bytes.  map_update2d:
     512 threads; shared memory (Hopper's limit at 64 particles on a card
     of 132 SMs, each CTA with an SM of its own; 113 KB where the SMs are
     not known) holds the fixed part (4 words a measurement, two bit words
@@ -114,11 +121,16 @@ def test_launch_plans(kernel, shape):
             assert plan.workspace == 44 * p * n
             assert n <= room <= max(1, zc) * n
             assert plan.zb == min(zc, room // n) >= 1
-    elif kernel == "merge2d":
+    else:
         p = shape[0]
         assert plan.threads == 1024
-        fields, claims = 20 * n, 4 * n + 12 * words(n)
-        if n <= 9535:
+        field_bytes, all_shared = ((20, 9535) if kernel == "merge2d"
+                                   else (36, 5756))
+        fields, claims = field_bytes * n, 4 * n + 12 * words(n)
+        # the tiers' boundaries, from the layout
+        assert (16 + fields + claims <= build.MAX_SMEM) == (n <= all_shared)
+        assert (16 + claims <= build.MAX_SMEM) == (n <= 53125)
+        if n <= all_shared:
             assert plan.smem == 16 + fields + claims and plan.workspace == 0
         elif n <= 53125:
             assert plan.smem == 16 + claims
@@ -126,22 +138,19 @@ def test_launch_plans(kernel, shape):
         else:
             assert plan.smem == 16
             assert plan.workspace == p * -(-(fields + claims) // 16) * 16
-        if n == 8192:
+        if (kernel, n) == ("merge2d", 8192):
             assert plan.smem == 199_696
-    else:
-        assert plan.threads == 1024 and plan.smem == 0
-        layout = 4 * (19 * n + n * words(n) + words(n))
-        assert plan.workspace == shape[0] * -(-layout // 16) * 16
-        # the mask dominates: 576,782,336 B at P=64, N=8,192
-        assert plan.workspace >= shape[0] * 4 * n * words(n)
+        if (kernel, n) == ("merge3d", 2048):
+            assert plan.smem == 82_704
 
 
 def sweeps(gate, alive):
-    """A numpy model of merge2d's large-form search on one particle
+    """A numpy model of the merges' large-form search on one particle
     (``csrc/merge_bitmask.cuh``), word by word as a warp walks it.  Sweep
-    A (``safe_sweep``) walks a row's words down from the top one, skips
-    words with no alive slot and stops at the first word whose ballot over
-    the alive lanes k < j holds a gated pair.  The claims
+    A (``safe_sweep``; ``safe_sweep2`` walks two rows at once, each as
+    here) walks a row's words down from the top one, skips words with no
+    alive slot and stops at the first word whose ballot over the alive
+    lanes k < j holds a gated pair.  The claims
     (``claim_sweep``): each unsafe row walks the list of words holding a
     safe slot (``safe_words``) up to j, tests only the safe lanes and takes
     the lowest lane of the first word with a hit; each absorber keeps its
@@ -184,19 +193,25 @@ def sweeps(gate, alive):
     return first, j_star
 
 
-def test_merge2d_sweeps_match_twin(rng):
+@pytest.mark.parametrize("D", [2, 3])
+def test_merge2d_sweeps_match_twin(rng, D):
     """The model of the mask-free search (:func:`sweeps`) picks exactly
     the twin's ``first_i`` and ``j_star`` (``ops/gm.py::_merge_pairs``,
-    the pair choice of ``_merge_pass``) on every pass of the fixpoint:
-    random mixtures crowded enough to merge, and chains gated across
-    32-slot words, at N=160 (five words) with dead slots between alive
-    ones in later passes."""
-    d = mixture_np(rng, 2, 6, 160, (60, 161), spread=1.2)
+    the pair choice of ``_merge_pass``) on every pass of the fixpoint, with
+    merge2d's gate (D=2) and merge3d's (D=3): random mixtures crowded
+    enough to merge, and chains gated across 32-slot words, at N=160 (five
+    words) with dead slots between alive ones in later passes."""
+    d = mixture_np(rng, D, 6, 160, (60, 161), spread=1.2)
     mean, alive = d["mean"], d["alive"]
-    for p, s0 in ((4, 28), (5, 60)):       # chains across words 0-1, 1-2
+    eye = np.array([1.0 if r == c else 0.0 for r in range(D)
+                    for c in range(r, D)])
+    # chains across words 0-1, 1-2 and 2-3
+    for p, s0 in ((4, 28), (5, 60), (3, 90)):
+        mean[:, p, s0:s0 + 9] = 0.0
         mean[0, p, s0:s0 + 9] = 0.3 * np.arange(9)
-        mean[1, p, s0:s0 + 9] = 0.0
-        d["cov"][:, p, s0:s0 + 9] = np.array([0.05, 0.0, 0.05])[:, None]
+        if D == 3:
+            mean[2, p, s0:s0 + 9] = 0.5
+        d["cov"][:, p, s0:s0 + 9] = 0.05 * eye[:, None]
         alive[p, :s0 + 9] = True
     gm = GMState(**{k: t(v) for k, v in d.items()})
     passes = 0
