@@ -169,6 +169,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    large form once a frame with measurements; (6) the dry run's replay at
    2,048 slots on a 1 x 2 gloo map mesh sharing the card, 20 steps
    teacher-forced after 20, against the unsharded run;
+17. the weak-scaling harness (``parallel/scaling_bench.py``) at small
+   depth: the example step (8 particles a rank, M=64, Zc=8, 3 steps) on
+   the particle mesh over 1, 2 and 4 NCCL ranks where the cards hold them
+   and over two gloo ranks sharing one card, each against the one-rank
+   run at the same total P (``parent`` and ``alive`` equal, ``log_w`` and
+   the poses within the multistep tolerances); ``map_update2d`` and
+   ``merge2d`` launch in every rank as often a step as in the one-rank
+   run; one JSON line an n;
 6. with ``--gates``: the 4-seed simulation median (trajectory seed 1,
    generator seeds 1-4) against the bench gate of 0.15 m.
 
@@ -294,6 +302,8 @@ LARGE_REPLAY = (2048, 500)     # map slots, steps of the bl_dump replay
 LARGE_VP = (2048, 100)         # map slots, frames of VP RB-PHD
 LARGE_MESH = (2048, 20, 20)    # map slots, free and teacher-forced steps
 MERGE_TRACE_CHUNK = 8          # particles a merge trace takes at a time
+# phase 17: particles a rank, map slots, Zc, steps of the weak-scaling run
+SCALING = (8, 64, 8, 3)
 # the large forms' times recorded before their redesign (phase 16 on an
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: padded to
 # LARGE_PAD slots, and at the overflow shape
@@ -1724,6 +1734,47 @@ def sharded_phase(torch):
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def scaling_phase(torch):
+    """Phase 17: ``parallel/scaling_bench.bench`` at :data:`SCALING` over
+    the NCCL rank counts of 1, 2 and 4 that the cards hold, then over two
+    gloo ranks sharing one card; each n's equality check must pass and
+    each rank launch ``map_update2d`` and ``merge2d`` as often a step as
+    the one-rank run at the same total P (the launch counts of that run,
+    in this process, are read before and after)."""
+    from rfs_slam_tpu_torch.parallel import dryrun
+    from rfs_slam_tpu_torch.parallel import scaling_bench as sb
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    per, slots, zc, steps = SCALING
+    kernels = dryrun._kernel_modules()
+    for k in kernels.values():
+        k.launches = 0
+    for ranks, backend in (([n for n in (1, 2, 4) if n <= cards], None),
+                           ([2], "gloo")):
+        for rec in sb.bench(ranks, per, slots, zc, steps, "cuda", backend,
+                            timeout_s=SHARDED_TIMEOUT_S):
+            print(json.dumps({"phase17": f"{rec['ranks']} ranks",
+                              **rec}), flush=True)
+            if not rec["equality"]["ok"]:
+                raise AssertionError(f"phase 17: the {rec['ranks']}-rank "
+                                     f"run differs from the one-rank run: "
+                                     f"{rec['equality']}")
+            want = rec["one_rank_launches_per_step"]
+            for got in rec["rank_launches_per_step"]:
+                for name in ("map_update2d", "merge2d"):
+                    if not got[name] or got[name] != want[name]:
+                        raise AssertionError(
+                            f"phase 17: {name} launched {got[name]} times "
+                            f"a step on a rank, {want[name]} on one rank")
+    launches = {k: m.launches for k, m in kernels.items()}
+    if not (launches["map_update2d"] and launches["merge2d"]):
+        raise AssertionError(f"phase 17: the one-rank runs launched "
+                             f"{launches}")
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s, one-rank launches "
+          f"{launches}", flush=True)
+
+
 def batchsim_cells(torch, batchsim, kernels, dev):
     """One 300-step cell of each filter kind through ``run_one``."""
     from rfs_slam_tpu_torch.io import sim2d_xml
@@ -2381,6 +2432,10 @@ def main(argv=None) -> int:
         "card": card}), flush=True)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     elapsed("phase 16")
+
+    # ---- 17. the weak-scaling harness at small depth
+    scaling_phase(torch)
+    elapsed("phase 17")
 
     # the accuracy of phases 7-8 (checked once every phase has printed):
     # every seed's run below dead reckoning, their median within the bound

@@ -237,6 +237,26 @@ def _load_out_chunks(ckpt_dir: str, upto: int):
     return chunks
 
 
+def stream_paths(data_dir: str | None, cfg_path: str | None, n_frames: int,
+                 seed: int, out_dir: str) -> tuple[str, str]:
+    """``(data_dir, cfg_path)`` of the stream a Victoria Park tool runs
+    on: the dataset and its XML when ``data_dir`` is given (``cfg_path``
+    then required), else the synthetic stream of ``io/vp_synth.py``
+    (``n_frames`` frames of ``seed``, no scans) and its config, written
+    under ``out_dir`` once."""
+    if data_dir is not None:
+        if cfg_path is None:
+            raise ValueError("a dataset directory needs its XML config")
+        return data_dir, cfg_path
+    from rfs_slam_tpu_torch.io import vp_synth
+
+    d = os.path.join(out_dir, f"vp_synth_seed{seed}_{n_frames}")
+    if not os.path.exists(os.path.join(d, "config.xml")):
+        vp_synth.write(d, seed=seed, n_frames=n_frames)
+        vp_synth.write_config(os.path.join(d, "config.xml"))
+    return d, os.path.join(d, "config.xml")
+
+
 def add_ckpt_args(ap) -> None:
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (enables chunked snapshots)")

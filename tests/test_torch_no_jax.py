@@ -1,6 +1,7 @@
 """rfs_slam_tpu_torch imports (its package walk reaching the checkpoint,
 timing and Victoria Park FastSLAM modules, the library modules, the
-examples and the particle mesh), and runs a block-diagonal JCBB search, a
+examples, the particle mesh and the weak-scaling harness) and the port's
+scripts (``scripts/*_torch.py``), and runs a block-diagonal JCBB search, a
 nearest-point query, a few 2-D simulation steps of RB-PHD and MH-FastSLAM,
 three synthetic Victoria Park frames (RB-PHD with snapshots, MH-FastSLAM)
 and RB-PHD steps sharded over a one-rank gloo group, in a process
@@ -42,8 +43,17 @@ SCRIPT = textwrap.dedent("""
                  "examples.linear_assignment_lexicographic",
                  "examples.ospa_error", "examples.spatial_index",
                  "parallel.mesh", "parallel.dryrun", "apps.example_step",
-                 "parallel.map_overflow_demo", "parallel.map_shard_bench"):
+                 "parallel.map_overflow_demo", "parallel.map_shard_bench",
+                 "parallel.scaling_bench"):
         assert "rfs_slam_tpu_torch." + name in names, name
+    # the port's scripts (their main() runs only from the command line)
+    import glob, importlib.util, os
+    tools = sorted(glob.glob(os.path.join("scripts", "*_torch.py")))
+    for path in tools:
+        spec = importlib.util.spec_from_file_location(
+            os.path.basename(path)[:-3], path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    assert len(tools) >= 7, tools
 
     import torch
     from rfs_slam_tpu_torch.ops import jcbb, spatial
