@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from rfs_slam_tpu_torch.utils import checkpoint
+from rfs_slam_tpu_torch.utils.timing import span
 
 
 def reseed_generator(gen: torch.Generator, reseed: int) -> None:
@@ -203,7 +204,8 @@ def chunked_scan(frame_step, state, gen: torch.Generator, n_frames: int,
         finally:
             if check_reads:
                 torch.cuda.set_sync_debug_mode("default")
-        outs = {k: v.cpu().numpy() for k, v in bufs.items()}
+        with span("vp.readback"):     # the loop's one wait on the device
+            outs = {k: v.cpu().numpy() for k, v in bufs.items()}
         f += c
         if ckpt_dir is not None:
             np.savez(os.path.join(ckpt_dir, f"outs_{f - c:06d}_{f:06d}.npz"),

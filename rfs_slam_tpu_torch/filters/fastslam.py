@@ -20,7 +20,10 @@ the caller: ``predict`` takes standard-normal motion draws ``[P, 3]`` and
 ``update`` the resampling offset ``u0``, or draws them from a
 ``torch.Generator`` on the state's device.  Nothing in a step reads a
 value back from the device; the empty-measurement branch is answered from
-the host with ``has_z``.
+the host with ``has_z``.  Each phase is a profiler span while a profiler
+records (``utils/timing.py``: ``fastslam.predict``, ``.update``,
+``.da_table``, ``.assoc``, ``.map_update``, ``.prune``, ``.births``,
+``.resample``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops import resample as resample_ops
 from rfs_slam_tpu_torch.ops.assignment import hungarian, murty_gated
 from rfs_slam_tpu_torch.ops.ekf import InnovationGates, correct_single
+from rfs_slam_tpu_torch.utils.timing import span
 
 _NEG_INF = float("-inf")
 
@@ -155,6 +159,7 @@ class FastSLAMFilter:
             n_updates=zi, n_meas=zi.clone())
 
     # --------------------------------------------------------------- predict
+    @span("fastslam.predict")
     def predict(self, state: FastSLAMState, u: torch.Tensor, dt,
                 noise: torch.Tensor | None = None,
                 gen: torch.Generator | None = None,
@@ -179,6 +184,7 @@ class FastSLAMFilter:
             particles=dataclasses.replace(state.particles, pose=pose))
 
     # ---------------------------------------------------------------- update
+    @span("fastslam.update")
     def update(self, state: FastSLAMState, z: torch.Tensor,
                z_mask: torch.Tensor, u0: torch.Tensor | None = None,
                gen: torch.Generator | None = None,
@@ -208,6 +214,7 @@ class FastSLAMFilter:
                                  meas if meas is not None else self.meas,
                                  mesh)
 
+    @span("fastslam.da_table")
     def _da_table(self, pose, gm: GMState, z, z_mask, meas):
         """In-range landmarks ranked by descending existence weight into
         the rows of a padded log-likelihood table (FastSLAM.hpp:450-491).
@@ -261,6 +268,7 @@ class FastSLAMFilter:
         gate_tab[:, :, :Zc] = gate_ok & ok
         return table, lm_idx, row_valid, pd_rank, gate_tab
 
+    @span("fastslam.map_update")
     def _apply_hypothesis(self, pose, gm: GMState, z, z_mask, da, table,
                           lm_idx, row_valid, pd_rank, log_w, meas):
         """EKF updates, existence log-odds and particle weight for one DA
@@ -311,6 +319,7 @@ class FastSLAMFilter:
         log_w = log_w + torch.where(updated, L_da, 0.0).sum(dim=1)
         return gm, z_used, log_w, updated.sum(dim=1, dtype=torch.int32)
 
+    @span("fastslam.births")
     def _candidates(self, pose, gm: GMState, cand: BirthCandidates, z,
                     z_mask, z_used, n_in_fov, meas):
         """Unused measurements -> the landmark-candidate pipeline
@@ -399,6 +408,7 @@ class FastSLAMFilter:
         return gm, dataclasses.replace(cand, n_checks=checks,
                                        alive=cand.alive & ~trigger)
 
+    @span("fastslam.prune")
     def _prune(self, gm: GMState, nZ) -> GMState:
         """Existence-log-odds pruning (FastSLAM.hpp:628-631)."""
         cfg = self.cfg
@@ -438,10 +448,11 @@ class FastSLAMFilter:
 
         # k-best hypotheses per live slot (the real-assignment block)
         n_m = row_valid.sum(dim=1)
-        das, scores, valid = murty_gated(
-            table, H, n_m, real_cols=nZ, child_cap=cfg.murty_child_cap,
-            prune_window=cfg.max_da_loglik_diff,
-            budget=cfg.murty_lane_budget, mesh=mesh)    # [Pc,H,NMZ], [Pc,H]
+        with span("fastslam.assoc"):
+            das, scores, valid = murty_gated(
+                table, H, n_m, real_cols=nZ, child_cap=cfg.murty_child_cap,
+                prune_window=cfg.max_da_loglik_diff,
+                budget=cfg.murty_lane_budget, mesh=mesh)  # [Pc,H,NMZ], [Pc,H]
         keep = (valid & (scores[:, :1] - scores <= cfg.max_da_loglik_diff)
                 & alive_p[:, None])
         keep[:, 0] = alive_p                            # best always kept
@@ -478,9 +489,10 @@ class FastSLAMFilter:
         do_rs = force | (gates_met & (resample_ops.effective_count(flat_lw)
                                       <= cfg.ess_threshold))
         # resample: P_init ancestors over the whole hypothesis CDF
-        anc_rs = torch.cat([
-            resample_ops.systematic_ancestors(u0, flat_lw, P_init),
-            torch.zeros(P_cap - P_init, dtype=torch.long, device=dev)])
+        with span("fastslam.resample"):
+            anc_rs = torch.cat([
+                resample_ops.systematic_ancestors(u0, flat_lw, P_init),
+                torch.zeros(P_cap - P_init, dtype=torch.long, device=dev)])
         slot = torch.arange(P_cap, device=dev)
         alive_rs = slot < P_init
         lw_rs = torch.where(alive_rs, -math.log(float(P_init)), _NEG_INF)
@@ -499,10 +511,11 @@ class FastSLAMFilter:
         hyp = anc_flat // P_cap
 
         # materialize only the selected hypotheses
-        g = resample_ops.gather_particles(
-            {"pose": pose, "gm": gm, "cand": state.cand, "das": das,
-             "table": table, "lm_idx": lm_idx, "row_valid": row_valid,
-             "pd_rank": pd_rank}, parent, mesh)
+        with span("fastslam.resample"):
+            g = resample_ops.gather_particles(
+                {"pose": pose, "gm": gm, "cand": state.cand, "das": das,
+                 "table": table, "lm_idx": lm_idx, "row_valid": row_valid,
+                 "pd_rank": pd_rank}, parent, mesh)
         if mesh is not None:
             parent, hyp, out_alive, new_log_w = (
                 mesh.block(x) for x in (parent, hyp, out_alive, new_log_w))
@@ -540,7 +553,8 @@ class FastSLAMFilter:
                 state, z, z_mask, u0, table, lm_idx, row_valid, pd_rank,
                 gate_tab, meas, mesh)
         if H == 1:
-            da, _ = hungarian(table)
+            with span("fastslam.assoc"):
+                da, _ = hungarian(table)
             gm, z_used, log_w, n_in_fov = self._apply_hypothesis(
                 pose, gm, z, z_mask, da, table, lm_idx, row_valid, pd_rank,
                 state.particles.log_w, meas)
@@ -549,11 +563,12 @@ class FastSLAMFilter:
             # k-best hypotheses, weight split (FastSLAM.hpp:547-563); a
             # hypothesis outside the window collapses to the best and
             # carries -inf (the fixed-shape deviation of mh_grow=False)
-            das, scores, valid = murty_gated(
-                table, H, row_valid.sum(dim=1), real_cols=nZ,
-                child_cap=cfg.murty_child_cap,
-                prune_window=cfg.max_da_loglik_diff,
-                budget=cfg.murty_lane_budget, mesh=mesh)
+            with span("fastslam.assoc"):
+                das, scores, valid = murty_gated(
+                    table, H, row_valid.sum(dim=1), real_cols=nZ,
+                    child_cap=cfg.murty_child_cap,
+                    prune_window=cfg.max_da_loglik_diff,
+                    budget=cfg.murty_lane_budget, mesh=mesh)
             keep = valid & (scores[:, :1] - scores <= cfg.max_da_loglik_diff)
             das = torch.where(keep[:, :, None], das, das[:, :1, :])
             split_log_w = state.particles.log_w - torch.log(
@@ -583,27 +598,28 @@ class FastSLAMFilter:
         # resampling back to n_particles (FastSLAM.hpp:728-757)
         allow = ((state.n_updates + 1 >= cfg.min_updates_before_resample)
                  & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
-        P_all = P if mesh is None else mesh.p_global
-        rows = None
-        if H == 1:
-            anc, new_log_w, did = resample_ops.maybe_resample(
-                u0, log_w, cfg.ess_threshold, allow, mesh)
-        else:
-            if mesh is not None:
-                # the copies in the unsharded order h * P_all + p
-                log_w = mesh.all_gather(log_w.view(H, P).T).T.reshape(-1)
-            anc = resample_ops.systematic_ancestors(u0, log_w, P_all)
-            new_log_w = torch.full((P,), -math.log(P_all),
-                                   dtype=log_w.dtype, device=log_w.device)
-            did = torch.ones((), dtype=torch.bool, device=log_w.device)
-            if mesh is not None:
-                # copy h * P_all + p sits in row h * P + p % P of rank
-                # p // P's block of the gathered rows
-                h, p = anc // P_all, anc % P_all
-                rows = (p // P) * (H * P) + h * P + p % P
-        g = resample_ops.gather_particles(
-            {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov},
-            anc if rows is None else rows, mesh)
+        with span("fastslam.resample"):
+            P_all = P if mesh is None else mesh.p_global
+            rows = None
+            if H == 1:
+                anc, new_log_w, did = resample_ops.maybe_resample(
+                    u0, log_w, cfg.ess_threshold, allow, mesh)
+            else:
+                if mesh is not None:
+                    # the copies in the unsharded order h * P_all + p
+                    log_w = mesh.all_gather(log_w.view(H, P).T).T.reshape(-1)
+                anc = resample_ops.systematic_ancestors(u0, log_w, P_all)
+                new_log_w = torch.full((P,), -math.log(P_all),
+                                       dtype=log_w.dtype, device=log_w.device)
+                did = torch.ones((), dtype=torch.bool, device=log_w.device)
+                if mesh is not None:
+                    # copy h * P_all + p sits in row h * P + p % P of rank
+                    # p // P's block of the gathered rows
+                    h, p = anc // P_all, anc % P_all
+                    rows = (p // P) * (H * P) + h * P + p % P
+            g = resample_ops.gather_particles(
+                {"pose": pose, "gm": gm, "cand": cand, "fov": n_in_fov},
+                anc if rows is None else rows, mesh)
         zero = torch.zeros_like(state.n_updates)
         # the recorded ancestry indexes the previous step's P particles
         # (copy h * P + p descends from particle p); under a mesh, the

@@ -24,7 +24,10 @@ standard-normal motion draws ``[P, 3]`` and input draws ``[P, DU]``, and
 ``update`` the resampling offset ``u0``, or draws them from a
 ``torch.Generator`` on the state's device.  Nothing in a step waits on the
 device except the host-known empty-measurement branch, which the caller can
-answer with ``has_z``.
+answer with ``has_z``.  Each phase is a profiler span (``utils/timing.py``:
+``rbphd.predict``, ``.births``, ``.update``, ``.map_update``,
+``.importance``, ``.merge``, ``.prune``, ``.resample``), and births, merges
+and resamplings are tallied, both only while a profiler records.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from rfs_slam_tpu_torch.ops.kernels.map_update2d import (block_sum,
                                                          pack_params)
 from rfs_slam_tpu_torch.ops.rfs_likelihood import rfs_log_likelihood
 from rfs_slam_tpu_torch.parallel.mesh import MapMesh
+from rfs_slam_tpu_torch.utils.timing import span, tally
 
 LOG_TINY = -80.0  # log-domain stand-in for denorm_min (RBPHDFilter.hpp:743)
 
@@ -140,6 +144,7 @@ class RBPHDFilter:
         )
 
     # --------------------------------------------------------------- predict
+    @span("rbphd.predict")
     def predict(self, state: RBPHDState, u: torch.Tensor, dt,
                 noise: torch.Tensor | None = None,
                 gen: torch.Generator | None = None,
@@ -177,6 +182,7 @@ class RBPHDFilter:
             state, gm=gm, birth=birth,
             particles=dataclasses.replace(state.particles, pose=pose))
 
+    @span("rbphd.births")
     def _add_birth_gaussians(self, state: RBPHDState, meas=None):
         """RBPHDFilter::addBirthGaussians (RBPHDFilter.hpp:1000-1084).
         Returns ``(gm, birth)``.
@@ -204,6 +210,7 @@ class RBPHDFilter:
             return torch.where(mask, w_b, 0.0).to(pose.dtype)
 
         if cfg.birth_count_threshold == 1:
+            tally("rbphd.born", unused)
             return gm_ops.replace_weakest(state.gm, inv_mean, inv_cov,
                                           born(unused), unused), birth
 
@@ -242,6 +249,7 @@ class RBPHDFilter:
         is_new = unused & ~z_matched
         immediate = is_new & few_in_fov
         to_insert = is_new & ~immediate
+        tally("rbphd.born", immediate)
         gm = gm_ops.replace_weakest(state.gm, inv_mean, inv_cov,
                                     born(immediate), immediate)
 
@@ -277,12 +285,14 @@ class RBPHDFilter:
         trigger = birth.alive & (
             enough | (checks > cfg.birth_check_threshold) | few_in_fov)
         promote = trigger & (enough | few_in_fov)
+        tally("rbphd.born", promote)
         gm = gm_ops.replace_weakest(gm, birth.mean, birth.cov, born(promote),
                                     promote)
         return gm, dataclasses.replace(birth, n_checks=checks,
                                        alive=birth.alive & ~trigger)
 
     # ---------------------------------------------------------------- update
+    @span("rbphd.update")
     def update(self, state: RBPHDState, z: torch.Tensor,
                z_mask: torch.Tensor, u0: torch.Tensor | None = None,
                gen: torch.Generator | None = None,
@@ -339,21 +349,23 @@ class RBPHDFilter:
         if not cfg.use_cluster_process:
             log_w = self._importance_weights(log_w, pose, gm_full, z, z_mask,
                                              clutter_z, nZ, meas, mm)
-        if mm is None:
-            gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
-                                   cfg.merge_inflation)
-        else:
-            # the merge pairs slots over the whole map in weight order
-            gm_full = mm.map_block_gm(gm_ops.merge(
-                mm.gather_map(gm_full), cfg.merge_threshold,
-                cfg.merge_inflation))
-        gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
+        with span("rbphd.merge"):
+            # under a map mesh the merge pairs slots over the whole map in
+            # weight order
+            g = gm_full if mm is None else mm.gather_map(gm_full)
+            tally("rbphd.merge_in", g.alive)
+            g = gm_ops.merge(g, cfg.merge_threshold, cfg.merge_inflation)
+            tally("rbphd.merge_out", g.alive)
+            gm_full = g if mm is None else mm.map_block_gm(g)
+        with span("rbphd.prune"):
+            gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
         if u0 is None:
             u0 = torch.rand((), generator=gen, dtype=pose.dtype,
                             device=pose.device)
         return self._resample_phase(state, gm_full, log_w, unused, n_in_fov,
                                     z, nZ, u0, mesh)
 
+    @span("rbphd.map_update")
     def _map_update(self, state: RBPHDState, z, z_mask, meas=None,
                     mesh: MapMesh | None = None):
         """Map-update phase (RBPHDFilter.hpp:543-725): the head (the
@@ -511,6 +523,7 @@ class RBPHDFilter:
                 torch.cat(vals, dim=1), torch.cat(idxs, dim=1), corr.K,
                 corr.z_exp, corr.cov_upd)
 
+    @span("rbphd.resample")
     def _resample_phase(self, state: RBPHDState, gm_full, log_w, unused,
                         n_in_fov, z, nZ, u0, mesh=None) -> RBPHDState:
         """Resampling phase (RBPHDFilter.hpp:526-539) and state assembly.
@@ -521,6 +534,7 @@ class RBPHDFilter:
                  & (state.n_meas + nZ >= cfg.min_measurements_before_resample))
         anc, new_log_w, did = resample_ops.maybe_resample(
             u0, log_w, cfg.ess_threshold, allow, mesh)
+        tally("rbphd.resampled", did)
         g = resample_ops.gather_particles(
             {"pose": state.particles.pose, "gm": gm_full,
              "birth": state.birth, "unused": unused, "fov": n_in_fov},
@@ -539,6 +553,7 @@ class RBPHDFilter:
             n_meas=torch.where(did, zero, state.n_meas + nZ),
         )
 
+    @span("rbphd.importance")
     def _importance_weights(self, log_w, pose, gm: GMState, z, z_mask,
                             clutter_z, nZ, meas=None,
                             mesh: MapMesh | None = None):

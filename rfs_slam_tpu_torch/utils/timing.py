@@ -7,16 +7,98 @@ logged to ``timing.dat`` (rbphdslam2dSim.cpp:654-732).  A phase is timed as
 its own call: the host's wall clock around the call and its wait for the
 device, the process's CPU time (the host's launch work), and on the card the
 device time between CUDA events recorded around the call.
+
+Inside a step the phases are marked instead by :class:`span` ranges and
+counted by :func:`tally`, both live only while a ``torch.profiler`` session
+records: the filters' spans are named ``<layer>.<phase>`` (``rbphd.update``,
+``fastslam.assoc``, ``vp.readback``), and the profiler records them on the
+clock of the device's kernels.  With no profiler running a span or a tally
+costs one check of the profiler's state.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 
 from rfs_slam_tpu_torch.ops import gm as gm_ops
 from rfs_slam_tpu_torch.ops.ekf import correct_all
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class span:
+    """A profiler range named ``name`` around a block (``with
+    span(name):``) or a function (``@span(name)``), opened only while a
+    ``torch.profiler`` session records; otherwise it costs one check of the
+    profiler's state.  It never reads the device."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        r, self._range = self._range, None
+        if r is not None:
+            r.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+_tallied: dict[str, list[torch.Tensor]] = {}
+_session_over = False     # a tally ran untraced since the kept ones
+
+
+def tally(name: str, t: torch.Tensor) -> None:
+    """Count ``t``'s sum under ``name`` while a profiler session records:
+    keeps a reference to ``t`` (a tensor the step has computed and nothing
+    changes in place afterwards), with no launch and no read.  The kept
+    tensors live for one session: they can be read after it ends, and the
+    first tally of a later session (one after a tally ran untraced) lets
+    the unread ones go."""
+    global _session_over
+    if _profiling():
+        if _session_over:
+            _tallied.clear()
+            _session_over = False
+        _tallied.setdefault(name, []).append(t)
+    elif _tallied:
+        _session_over = True
+
+
+def tallies(reset: bool = True) -> dict[str, float]:
+    """``{name: sum of every tallied tensor}`` since the last reset, read
+    with one wait for the device."""
+    global _session_over
+    if not _tallied:
+        return {}
+    names = list(_tallied)
+    values = torch.stack([sum(t.sum(dtype=torch.float64) for t in _tallied[n])
+                          for n in names]).tolist()
+    if reset:
+        _tallied.clear()
+        _session_over = False
+    return dict(zip(names, values))
 
 
 class PhaseTimer:

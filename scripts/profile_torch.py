@@ -9,10 +9,11 @@ breakdown of a profiled window.
 (``--hypotheses 3``) at chip_smoke's width on ``sim2d.generate(
 traj_seed=1, noise_seed=1)`` with the stand-in ``fastslam2dSim.xml``
 (steps/s, median pose error beside dead reckoning's, the Hungarian
-kernel's launches); its phases are predict, da_table, assoc (the
-Hungarian or the gated Murty), map_update (the EKF and existence updates of
-the chosen hypotheses), prune, births (the landmark candidates) and
-resample (with the map copy); ``update`` spans them.
+kernel's launches); its phases are the filter's spans ``fastslam.predict``,
+``.da_table``, ``.assoc`` (the Hungarian or the gated Murty),
+``.map_update`` (the EKF and existence updates of the chosen hypotheses),
+``.prune``, ``.births`` (the landmark candidates) and ``.resample`` (with
+the map copy); ``fastslam.update`` spans all but the first.
 ``--path vp_fastslam``: FastSLAM 1.0 (``--hypotheses 1``) or MH-FastSLAM
 (``--hypotheses 3``) at the Victoria Park FastSLAM app's width (P=200,
 M=512, Zc=24, a DA table of 32) on the synthetic stream (frames/s,
@@ -20,20 +21,26 @@ trajectory RMSE beside dead reckoning's, the Hungarian kernel's launches
 beside the frames with measurements), with the FastSLAM phases.
 
 The window is a second run of ``start + length`` frames (or steps) whose
-last ``length`` run under ``torch.profiler``, each filter phase inside a
-``record_function`` range (births, predict, map update, importance, merge,
-prune, resample; ``update`` spans the last five).  On the replay the births
-run inside ``predict``, so its range includes theirs.  Prints the card's
-name and power limit, one JSON line for the whole run (on the VP path with
-``merge3d``'s launches beside the frames with measurements) and one for the
-window: host and device ms per frame for each phase, the device's busy time
-and idle share, kernel launches per frame, the kernels that take the most
-device time, and the device time of the port's own CUDA kernels.
+last ``length`` run under ``torch.profiler``, which records the filters'
+own spans (``utils/timing.py``; the RB-PHD ones ``rbphd.births``,
+``.predict``, ``.map_update``, ``.importance``, ``.merge``, ``.prune``,
+``.resample``, and ``rbphd.update`` around the last five) and tallies.  On
+the replay the births run inside ``rbphd.predict``, so its span includes
+theirs.  A Victoria Park window runs through the apps' chunked loop
+(``_vp_common.chunked_scan``, its frames' outputs gathered on the device
+and read back every ``--chunk`` frames), so its phases add the loop's
+``vp.readback``.  Prints the card's name and power limit, one JSON line
+for the whole run (on the VP path with ``merge3d``'s launches beside the
+frames with measurements) and one for the window: host and device ms,
+calls and device operations per frame for each phase, the device's busy
+time and idle share, device operations per frame, the kernels that take
+the most device time, the device time of the port's own CUDA kernels, and
+the tallies per frame (births, merges in and out, resamplings).
 
 Usage, from the repository root on a machine with the card::
 
     python3 scripts/profile_torch.py [--path vp] [--frames 7230]
-        [--window 1000:20]
+        [--window 1000:20] [--chunk 50]
     python3 scripts/profile_torch.py --path replay --window 1000:60
     python3 scripts/profile_torch.py --path fastslam --hypotheses 3 \
         --frames 2000 --window 1000:40
@@ -61,55 +68,22 @@ from rfs_slam_tpu_torch.apps import fastslam_victoriapark as fs_vp  # noqa
 from rfs_slam_tpu_torch.apps import rbphdslam2dsim as app2d  # noqa: E402
 from rfs_slam_tpu_torch.apps import sim2d_common as loop  # noqa: E402
 from rfs_slam_tpu_torch.apps import rbphdslam_victoriapark as app  # noqa: E402
-from rfs_slam_tpu_torch.filters import fastslam as fs_filter  # noqa: E402
 from rfs_slam_tpu_torch.io import sim2d, sim2d_xml  # noqa: E402
 from rfs_slam_tpu_torch.io import victoria_park as vp_io  # noqa: E402
 from rfs_slam_tpu_torch.io import vp_synth  # noqa: E402
 from rfs_slam_tpu_torch.io.xmlconfig import XmlConfig, load_sim2d  # noqa: E402
-from rfs_slam_tpu_torch.ops import gm as gm_ops  # noqa: E402
-from rfs_slam_tpu_torch.ops import resample as resample_ops  # noqa: E402
 from rfs_slam_tpu_torch.ops.kernels import hungarian, merge3d  # noqa: E402
+from rfs_slam_tpu_torch.utils import timing  # noqa: E402
 
-PHASES = ("births", "predict", "map_update", "importance", "merge", "prune",
-          "resample", "update")
-FS_PHASES = ("predict", "da_table", "assoc", "map_update", "prune", "births",
-             "resample", "update")
-
-
-def ranged(name, fn):
-    def wrapped(*a, **k):
-        with torch.profiler.record_function(name):
-            return fn(*a, **k)
-    return wrapped
-
-
-def instrument(filt):
-    """Wrap each phase in a profiler range (this process only)."""
-    filt._add_birth_gaussians = ranged("births", filt._add_birth_gaussians)
-    filt.predict = ranged("predict", filt.predict)
-    filt._map_update = ranged("map_update", filt._map_update)
-    filt._importance_weights = ranged("importance",
-                                      filt._importance_weights)
-    filt._resample_phase = ranged("resample", filt._resample_phase)
-    filt.update = ranged("update", filt.update)
-    gm_ops.merge = ranged("merge", gm_ops.merge)
-    gm_ops.prune = ranged("prune", gm_ops.prune)
-
-
-def instrument_fastslam(filt):
-    """The FastSLAM phases in profiler ranges (this process only)."""
-    filt.predict = ranged("predict", filt.predict)
-    filt._da_table = ranged("da_table", filt._da_table)
-    filt._apply_hypothesis = ranged("map_update", filt._apply_hypothesis)
-    filt._prune = ranged("prune", filt._prune)
-    filt._candidates = ranged("births", filt._candidates)
-    filt.update = ranged("update", filt.update)
-    fs_filter.hungarian = ranged("assoc", fs_filter.hungarian)
-    fs_filter.murty_gated = ranged("assoc", fs_filter.murty_gated)
-    for name in ("maybe_resample", "systematic_ancestors",
-                 "gather_particles"):
-        setattr(resample_ops, name,
-                ranged("resample", getattr(resample_ops, name)))
+# the filters' own spans (filters/rbphd.py, filters/fastslam.py)
+PHASES = ("rbphd.births", "rbphd.predict", "rbphd.map_update",
+          "rbphd.importance", "rbphd.merge", "rbphd.prune", "rbphd.resample",
+          "rbphd.update")
+FS_PHASES = ("fastslam.predict", "fastslam.da_table", "fastslam.assoc",
+             "fastslam.map_update", "fastslam.prune", "fastslam.births",
+             "fastslam.resample", "fastslam.update")
+# every span's device-side mirror, left out of the device operations
+SPANS = frozenset(PHASES + FS_PHASES + ("vp.readback",))
 
 
 def timed(fn):
@@ -118,6 +92,29 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def stepwise(step):
+    """A window that runs ``step(state, j)`` for each of its frames."""
+    def window(state, start, length):
+        for j in range(start, start + length):
+            state = step(state, j)
+        return state
+    return window
+
+
+def chunked(step, outputs, gen, chunk):
+    """A window through the app's chunked loop
+    (``_vp_common.chunked_scan``): ``step`` for each frame, ``outputs``
+    gathered on the device and read back every ``chunk`` frames inside the
+    ``vp.readback`` span."""
+    def window(state, start, length):
+        def frame_step(state, i):
+            state = step(state, start + i)
+            return state, outputs(state)
+        return _vp_common.chunked_scan(frame_step, state, gen, length,
+                                       ckpt_every=chunk, progress=False)[0]
+    return window
 
 
 def vp_stream(args):
@@ -131,8 +128,9 @@ def vp_stream(args):
 
 
 def vp_path(args, dev):
-    """(filter, whole-run record, warm(start) -> the state before frame
-    ``start``, step(state, j) -> state) of the Victoria Park path."""
+    """(whole-run record, warm(start) -> the state before frame
+    ``start``, window(state, start, length) -> the state after the window)
+    of the Victoria Park path."""
     data, cfg = vp_stream(args)
     filt, icov, ack = app.build(cfg, device=dev)
     stream = vp_io.load(data, z_capacity=app.Z_CAPACITY, ackerman=ack)
@@ -160,11 +158,13 @@ def vp_path(args, dev):
             state = step(state, j)
         return state
 
-    return filt, record, warm, step
+    return record, warm, chunked(
+        step, lambda s: _vp_common.frame_outputs(
+            s, torch.exp(s.particles.log_w)), gen, args.chunk)
 
 
 def vp_fastslam_path(args, dev):
-    """The same four for Victoria Park FastSLAM (``--hypotheses``) on the
+    """The same three for Victoria Park FastSLAM (``--hypotheses``) on the
     first ``--frames`` frames of the synthetic stream."""
     data, cfg = vp_stream(args)
     filt, icov, ack = fs_vp.build(cfg, hypotheses=args.hypotheses,
@@ -198,11 +198,17 @@ def vp_fastslam_path(args, dev):
             state = step(state, j)
         return state
 
-    return filt, record, warm, step
+    def outputs(state):
+        lw = state.particles.log_w
+        return _vp_common.frame_outputs(
+            state, torch.exp(lw - torch.logsumexp(lw, dim=0)),
+            map_w=torch.sigmoid)
+
+    return record, warm, chunked(step, outputs, gen, args.chunk)
 
 
 def replay_path(args, dev):
-    """The same four for the bench filter on the ``native/bl_dump``
+    """The same three for the bench filter on the ``native/bl_dump``
     replay (the window must start after the ground-truth lock)."""
     if int(args.window.split(":")[0]) < loop.GT_LOCK_STEPS:
         raise SystemExit("--window must start after the ground-truth lock "
@@ -233,11 +239,11 @@ def replay_path(args, dev):
         state = filt.predict(state, odo[k], dt, gen=gen)
         return filt.update(state, z[k], zm[k], gen=gen, has_z=bool(has_z[k]))
 
-    return filt, record, warm, step
+    return record, warm, stepwise(step)
 
 
 def fastslam_path(args, dev):
-    """The same four for FastSLAM (``--hypotheses``) on the first
+    """The same three for FastSLAM (``--hypotheses``) on the first
     ``--frames`` steps of sim2d traj_seed=1, noise_seed=1."""
     kind = "fastslam" if args.hypotheses == 1 else "mhfastslam"
     cfg = XmlConfig(sim2d_xml.write_config(
@@ -277,7 +283,7 @@ def fastslam_path(args, dev):
         return filt.update(state, din[1][k], din[2][k], gen=gen,
                            has_z=bool(din[-1][k]))
 
-    return filt, record, warm, step
+    return record, warm, stepwise(step)
 
 
 def main():
@@ -293,6 +299,9 @@ def main():
     ap.add_argument("--window", default="1000:20", help="START:LENGTH")
     ap.add_argument("--seed", type=int, default=0,
                     help="the VP stream's seed")
+    ap.add_argument("--chunk", type=int, default=50,
+                    help="VP frames a read-back in the window (the "
+                         "benchmark's VP chunk)")
     args = ap.parse_args()
     start, length = (int(x) for x in args.window.split(":"))
 
@@ -306,31 +315,36 @@ def main():
             "vp_fastslam": vp_fastslam_path}[args.path]
     fastslam = args.path in ("fastslam", "vp_fastslam")
     phases = FS_PHASES if fastslam else PHASES
-    filt, record, warm, step = path(args, dev)
+    if args.path in ("vp", "vp_fastslam"):
+        phases += ("vp.readback",)
+    record, warm, window = path(args, dev)
     print(json.dumps({**record, "card": card}), flush=True)
 
     # the profiled window
     state = warm(start)
-    (instrument_fastslam if fastslam else instrument)(filt)
+    timing.tallies()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for j in range(start, start + length):
-            state = step(state, j)
+        state = window(state, start, length)
         torch.cuda.synchronize()
         win = time.perf_counter() - t0
-    # host ms: the ranges' own wall on the host.  device ms: the kernels
-    # inside the range's mirror on the device timeline (first to last of
-    # its kernels); "device_ms_ops" the same from the host side
-    # (FunctionEvent.device_time_total, the range's ops' kernels).  The
-    # mirrors are left out of the busy sum.  A range nested in one of its
-    # own name (a wrapped resample op calling another) counts once.
+    tallied = timing.tallies()
+    # host ms: the spans' own wall on the host.  device ms and launches: the
+    # device operations inside the span's mirror on the device timeline
+    # (first to last of its kernels); "device_ms_ops" and "launches_ops"
+    # the same from the host side (the kernels of the span's ops, nested
+    # spans' included).  The mirrors are left out of the busy sum.  A span
+    # nested in one of its own name counts once.
     events = prof.events()
     dev_t = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events
-               if e.device_type == dev_t and e.name not in phases]
+               if e.device_type == dev_t and e.name not in SPANS]
+
+    def kernels_of(e):
+        return len(e.kernels) + sum(kernels_of(c) for c in e.cpu_children)
 
     def nested(e):
         p = e.cpu_parent
@@ -353,17 +367,20 @@ def main():
             else:
                 spans.append((a, b))
         starts = [a for a, _ in spans]
-        inside = 0.0
+        inside, launches = 0.0, 0
         for k in kernels:
             i = bisect.bisect_right(starts, k.time_range.start) - 1
             if i >= 0 and k.time_range.start < spans[i][1]:
                 inside += k.device_time
+                launches += 1
         per[name] = {
             "host_ms": sum(e.cpu_time_total for e in host) / 1e3 / length,
             "device_ms": inside / 1e3 / length,
             "device_ms_ops": sum(e.device_time_total for e in host)
             / 1e3 / length,
-            "calls": len(host) / length}
+            "calls": len(host) / length,
+            "launches": launches / length,
+            "launches_ops": sum(kernels_of(e) for e in host) / length}
     busy = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
     for k in kernels:
@@ -388,7 +405,8 @@ def main():
                          "launches": c / length} for n, (t, c) in top],
         "port_kernels": {k: {"device_ms": t / 1e3 / length,
                              "launches": c / length}
-                         for k, (t, c) in ours.items()}}),
+                         for k, (t, c) in ours.items()},
+        "tallies_per_frame": {k: v / length for k, v in tallied.items()}}),
         flush=True)
 
 
